@@ -1,0 +1,65 @@
+"""Bridge for state carried across from the JAX package, as numpy arrays.
+
+The port imports nothing of :mod:`repro`; a caller that holds the reference's
+state (a fitted table, a config, a blob) hands it over as numpy arrays and
+plain fields, and gets the port's objects back:
+
+* :func:`table_from_numpy` — ``(bases, widths)`` -> :class:`BaseTable`;
+* :func:`config_from_fields` — the reference ``FRConfig``'s dataclass fields
+  (e.g. ``dataclasses.asdict(cfg)``) -> the port's :class:`FRConfig`;
+* :func:`blob_from_numpy` / :func:`blob_to_numpy` — blob dicts both ways.
+
+With these, one package can encode and the other decode.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.format import BaseTable
+from repro_torch.core.gbdi_fr import FRConfig
+
+#: the reference FRConfig's constructor fields (``delta_bits`` is an
+#: init-only alias and never carried)
+CONFIG_FIELDS = ("word_bits", "page_words", "num_bases", "width_set",
+                 "bucket_caps", "outlier_cap", "cap_profiles")
+
+
+def table_from_numpy(bases: Any, widths: Any,
+                     device: str | torch.device = "cpu") -> BaseTable:
+    return BaseTable(
+        torch.as_tensor(np.array(bases, dtype=np.int32), device=device),
+        torch.as_tensor(np.array(widths, dtype=np.int32), device=device),
+    )
+
+
+def config_from_fields(fields: Mapping[str, Any] | None = None, **kw: Any) -> FRConfig:
+    """Build the port's config from the reference config's field values."""
+    vals = {**(fields or {}), **kw}
+    unknown = set(vals) - set(CONFIG_FIELDS)
+    if unknown:
+        raise ValueError(f"not FRConfig fields: {sorted(unknown)}")
+
+    def tup(v: Any) -> Any:
+        return tuple(tup(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+    return FRConfig(**{k: tup(v) for k, v in vals.items()})
+
+
+def blob_from_numpy(blob: Mapping[str, Any],
+                    device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+    """Blob arrays (any int dtype) -> contiguous int32 tensors on ``device``."""
+    return {k: torch.as_tensor(np.array(v, dtype=np.int32), device=device).contiguous()
+            for k, v in blob.items()}
+
+
+def blob_to_numpy(blob: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)).astype(np.int32)
+            for k, v in blob.items() if not k.startswith("_")}
+
+
+__all__ = ["CONFIG_FIELDS", "blob_from_numpy", "blob_to_numpy",
+           "config_from_fields", "table_from_numpy"]

@@ -1,0 +1,5 @@
+"""GBDI-FR page kernels: hand-written CUDA for Hopper plus their plain versions.
+
+Kernel sources live in ``csrc/`` and are built on first use (see
+:mod:`repro_torch.kernels._build`); nothing is compiled at import.
+"""

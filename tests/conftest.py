@@ -34,6 +34,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running case (interpret-mode Pallas sweeps, "
         "full-size property suites); skipped unless --runslow or RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the CUDA kernels); skips inside "
+        "the test where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,225 @@
+"""The port's kernel modules: wrappers, plain versions, budgets, backends.
+
+On the CPU each wrapper runs its kernel's plain version, and these tests hold
+that path (and the table padding, budget check and backend routing around
+the kernels) against the JAX package.  Tests marked ``cuda`` launch the
+hand-written kernels and compare them with their plain versions bit for bit;
+they skip where there is no card.  The JAX reference is imported inside
+the tests that need it, so the card tests also run where JAX is absent.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.core import gbdi_fr as tfr
+from repro_torch.core.format import BaseTable
+from repro_torch.kernels import gbdi_decode as t_dec
+from repro_torch.kernels import gbdi_encode as t_enc
+from repro_torch.kernels import ops
+
+SMALL = dict(word_bits=16, page_words=256, num_bases=6, width_set=(4, 8),
+             bucket_caps=(64, 192), outlier_cap=16)
+ADAPTIVE = dict(word_bits=16, page_words=256, num_bases=6, width_set=(4, 8),
+                cap_profiles=((64, 192), (192, 64), (8, 8)), outlier_cap=16)
+WIDE = dict(word_bits=32, page_words=256, num_bases=5, width_set=(8, 16),
+            bucket_caps=(64, 192), outlier_cap=32)
+DEFAULT16 = dict(word_bits=16, page_words=2048, num_bases=14, width_set=(4, 8),
+                 bucket_caps=(192, 1856), outlier_cap=64)
+DEFAULT32 = dict(word_bits=32, page_words=2048, num_bases=14, width_set=(8, 16),
+                 bucket_caps=(192, 1856), outlier_cap=128)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX reference modules (the test skips where JAX is not installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.core import gbdi_fr
+    from repro.kernels import gbdi_encode
+
+    return SimpleNamespace(jnp=jnp, fr=gbdi_fr, enc=gbdi_encode)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _clustered(cfg, n_pages, seed):
+    rng = np.random.default_rng(seed)
+    mask = (1 << cfg.word_bits) - 1
+    centers = rng.integers(0, mask, cfg.num_bases)
+    w = (centers[rng.integers(0, cfg.num_bases, (n_pages, cfg.page_words))]
+         + rng.integers(-120, 120, (n_pages, cfg.page_words)))
+    w[:, ::7] = 0
+    w[:, 1::97] = rng.integers(0, mask, w[:, 1::97].shape)   # scattered outliers
+    return (w & mask).astype(np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("num_bases", [1, 6, 8, 14, 30])
+def test_pad_table_matches_reference(ref, num_bases):
+    jnp = ref.jnp
+    kw = dict(num_bases=num_bases)
+    jc, tc = ref.fr.FRConfig(**kw), tfr.FRConfig(**kw)
+    assert t_enc.k_padded(tc) == ref.enc.k_padded(jc)
+    rng = np.random.default_rng(num_bases)
+    bases = rng.integers(-2**31, 2**31 - 1, num_bases).astype(np.int32)
+    widths = rng.choice([4, 8, 5], num_bases).astype(np.int32)   # 5: foreign width
+    jb, jcls = ref.enc.pad_table(ref.fr.BaseTable(jnp.asarray(bases), jnp.asarray(widths)), jc)
+    tb, tcls = t_enc.pad_table(interop.table_from_numpy(bases, widths), tc)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tcls.numpy(), np.asarray(jcls))
+
+
+def test_smem_budget_check():
+    """The shared-memory check stands where the VMEM check stood: default
+    pages fit one block, a page past 227 KB raises (no fallback)."""
+    for kw in (DEFAULT16, DEFAULT32, ADAPTIVE):
+        cfg = tfr.FRConfig(**kw)
+        t_enc.check_smem(cfg)
+        t_enc.check_smem(cfg, t_dec.smem_bytes(cfg))
+        assert t_dec.smem_bytes(cfg) < t_enc.smem_bytes(cfg) <= t_enc.SMEM_LIMIT_BYTES
+    big = tfr.FRConfig(word_bits=16, page_words=32768, width_set=(4, 8),
+                       bucket_caps=(4096, 28672), outlier_cap=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_enc.check_smem(big)
+
+
+@pytest.mark.parametrize("kw", [SMALL, ADAPTIVE, WIDE], ids=["small", "adaptive", "wide"])
+def test_wrappers_on_cpu_run_the_plain_version(kw):
+    cfg = tfr.FRConfig(**kw)
+    x = torch.from_numpy(_clustered(cfg, 4, 0))
+    table = tfr.fit_fr_bases(x, cfg)
+    before = (t_enc.launch_count, t_dec.launch_count)
+    blob = t_enc.gbdi_encode(x, table, cfg)
+    plain = t_enc.gbdi_encode_plain(x, table, cfg)
+    assert set(blob) == set(plain)
+    for k in blob:
+        assert torch.equal(blob[k], plain[k]), k
+    dec = t_dec.gbdi_decode(blob, table, cfg)
+    assert torch.equal(dec, t_dec.gbdi_decode_plain(blob, table, cfg))
+    assert (t_enc.launch_count, t_dec.launch_count) == before   # no kernel ran
+    dropped = int(blob["n_dropped"].sum())
+    assert int((dec != x).sum()) <= dropped
+
+
+def test_wrappers_refuse_other_devices():
+    cfg = tfr.FRConfig(**SMALL)
+    table = BaseTable(torch.arange(6, dtype=torch.int32), torch.full((6,), 8, dtype=torch.int32))
+    x = torch.zeros(2, 256, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        t_enc.gbdi_encode(x, table, cfg)
+    blob = {k: torch.zeros(2, 1, dtype=torch.int32, device="meta") for k in ("ptrs",)}
+    with pytest.raises(ValueError, match="cuda"):
+        t_dec.gbdi_decode(blob, table, cfg)
+
+
+def test_resolve_backend_follows_the_device():
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    assert ops.resolve_backend("auto", cpu) == "ref"
+    assert ops.resolve_backend(None, gpu) == "kernel"
+    assert ops.resolve_backend("kernel", cpu) == "kernel"   # wrapper -> plain on CPU
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ops.resolve_backend("ref", gpu)                      # never plain on the card
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.resolve_backend("xla", cpu)
+
+
+@pytest.mark.parametrize("backend", ["ref", "kernel", "auto"])
+def test_tensor_roundtrip_matches_reference(ref, backend):
+    jnp, jfr = ref.jnp, ref.fr
+    kw = dict(word_bits=16, page_words=128, num_bases=6, width_set=(4, 8),
+              bucket_caps=(32, 96), outlier_cap=8)
+    jc, tc = jfr.FRConfig(**kw), tfr.FRConfig(**kw)
+    v = np.random.default_rng(2).normal(0, 1, (5, 77)).astype(np.float32)
+    t = torch.from_numpy(v).to(torch.bfloat16)
+    jpages, _ = jfr.tensor_to_pages(jnp.asarray(v).astype(jnp.bfloat16), jc)
+    jtable = jfr.fit_fr_bases(jpages, jc)
+    ttable = interop.table_from_numpy(np.asarray(jtable.bases), np.asarray(jtable.widths))
+    blob, meta = ops.encode_tensor(t, ttable, tc, backend)
+    jblob = jfr.fr_encode(jpages, jtable, jc)
+    for k in jblob:
+        np.testing.assert_array_equal(blob[k].numpy(), np.asarray(jblob[k]), err_msg=k)
+    back = ops.decode_tensor(blob, meta, ttable, tc, backend)
+    assert back.dtype == torch.bfloat16 and back.shape == t.shape
+    if int(blob["n_dropped"].sum()) == 0:
+        assert torch.equal(back.view(torch.int16), t.view(torch.int16))
+
+
+def test_interop_blob_roundtrip():
+    cfg = tfr.FRConfig(**ADAPTIVE)
+    x = torch.from_numpy(_clustered(cfg, 3, 4))
+    table = tfr.fit_fr_bases(x, cfg)
+    blob = tfr.fr_encode(x, table, cfg)
+    back = interop.blob_from_numpy(interop.blob_to_numpy(blob))
+    assert set(back) == set(blob)
+    for k in blob:
+        assert back[k].dtype == torch.int32 and torch.equal(back[k], blob[k])
+
+
+# ---------------------------------------------------------------------------
+# on the card: kernel vs plain, bit for bit
+# ---------------------------------------------------------------------------
+
+SPILL = dict(word_bits=16, page_words=256, num_bases=3, width_set=(4, 8),
+             bucket_caps=(32, 224), outlier_cap=8)
+
+
+def _spill_pages(n_pages):
+    rng = np.random.default_rng(11)
+    x = 1000 + rng.integers(-7, 8, (n_pages, 256))
+    x[:, ::9] = 20000 + rng.integers(-100, 100, (n_pages, 29))
+    x[n_pages // 2:, ::2] = rng.integers(30000, 65536, (n_pages - n_pages // 2, 128))
+    return (x & 0xFFFF).astype(np.int32)
+
+
+# single-width v1 config with 30 bases (8-bit pointers)
+V1_K30 = dict(word_bits=32, page_words=2048, delta_bits=8, num_bases=30, outlier_cap=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [SMALL, ADAPTIVE, WIDE, DEFAULT16, DEFAULT32, V1_K30, SPILL,
+                                "foreign"],
+                         ids=["small", "adaptive", "wide", "default16", "default32", "v1-k30",
+                              "spill", "foreign-width"])
+def test_kernels_match_plain_on_card(cuda_device, kw):
+    cfg = tfr.FRConfig(**(SMALL if kw == "foreign" else kw))
+    if kw is SPILL:
+        x = torch.from_numpy(_spill_pages(64)).to(cuda_device)
+        table = interop.table_from_numpy([1000, 1000, 20000], [4, 8, 8], cuda_device)
+    else:
+        x = torch.from_numpy(_clustered(cfg, 64, 1)).to(cuda_device)
+        table = tfr.fit_fr_bases(x, cfg)
+    if kw == "foreign":   # a base whose width is outside the width set is dead
+        table = BaseTable(table.bases, table.widths.clone().index_fill_(0, torch.tensor(
+            [0, 3], device=cuda_device), 5))
+    n_enc = t_enc.launch_count
+    blob = t_enc.gbdi_encode(x, table, cfg)
+    plain = t_enc.gbdi_encode_plain(x, table, cfg)
+    torch.cuda.synchronize()
+    assert t_enc.launch_count == n_enc + 1
+    assert set(blob) == set(plain)
+    for k in blob:
+        assert torch.equal(blob[k], plain[k]), k
+    if kw is SPILL:
+        assert int(plain["n_spilled"].sum()) > 0 and int(plain["n_dropped"].sum()) > 0
+    dec = t_dec.gbdi_decode(blob, table, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(dec, t_dec.gbdi_decode_plain(plain, table, cfg))
+
+
+@pytest.mark.cuda
+def test_smem_formula_matches_kernel_source(cuda_device):
+    from repro_torch.kernels import _build
+
+    for kw in (SMALL, ADAPTIVE, DEFAULT16, DEFAULT32):
+        cfg = tfr.FRConfig(**kw)
+        ip = _build.int_array(t_enc.kernel_iparams(cfg, 1))
+        assert _build.load("gbdi_encode").gbdi_encode_smem_bytes(ip) == t_enc.smem_bytes(cfg)
+        assert _build.load("gbdi_decode").gbdi_decode_smem_bytes(ip) == t_dec.smem_bytes(cfg)
