@@ -363,13 +363,25 @@ def fr_decode(blob: dict[str, torch.Tensor], table: fmt.TableLike, cfg: FRConfig
 # tensor-level wrappers (floats by bit pattern, like the paper's memory words)
 # ---------------------------------------------------------------------------
 
+def bf16_to_words(x: torch.Tensor) -> torch.Tensor:
+    """bf16 values (or anything cast to bf16) -> their bit patterns as int32
+    words in [0, 65535]."""
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & fmt.WORD16_MASK
+
+
+def words_to_bf16(words: torch.Tensor) -> torch.Tensor:
+    """int32 words -> the bf16 values whose bit patterns their low 16 bits hold."""
+    signed16 = ((words + fmt.WORD16_HALF) & fmt.WORD16_MASK) - fmt.WORD16_HALF
+    return signed16.to(torch.int16).view(torch.bfloat16)
+
+
 def tensor_to_pages(x: torch.Tensor, cfg: FRConfig) -> tuple[torch.Tensor, dict[str, Any]]:
     """Bitcast any tensor to (n_pages, page_words) int32 word pages."""
     flat = x.reshape(-1)
     if x.dtype == torch.float32:
         words = flat.view(torch.int32)
     elif x.dtype == torch.bfloat16:
-        words = flat.view(torch.int16).to(torch.int32) & fmt.WORD16_MASK
+        words = bf16_to_words(flat)
     elif x.dtype == torch.int32:
         words = flat
     elif x.dtype == torch.uint32:
@@ -390,8 +402,7 @@ def pages_to_tensor(words: torch.Tensor, meta: dict[str, Any], cfg: FRConfig) ->
     if meta["dtype"] == torch.float32:
         out = flat.view(torch.float32)
     elif meta["dtype"] == torch.bfloat16:
-        signed16 = ((flat + fmt.WORD16_HALF) & fmt.WORD16_MASK) - fmt.WORD16_HALF
-        out = signed16.to(torch.int16).view(torch.bfloat16)
+        out = words_to_bf16(flat)
     elif meta["dtype"] == torch.uint32:
         out = flat.view(torch.uint32)
     else:

@@ -7,9 +7,13 @@ plain fields, and gets the port's objects back:
 * :func:`table_from_numpy` — ``(bases, widths)`` -> :class:`BaseTable`;
 * :func:`config_from_fields` — the reference ``FRConfig``'s dataclass fields
   (e.g. ``dataclasses.asdict(cfg)``) -> the port's :class:`FRConfig`;
-* :func:`blob_from_numpy` / :func:`blob_to_numpy` — blob dicts both ways.
+* :func:`blob_from_numpy` / :func:`blob_to_numpy` — blob dicts both ways;
+* :func:`kv_spec_from_fields` — the reference ``KVSpec``'s fields (its
+  ``fr`` as a field mapping) -> the port's :class:`KVSpec`;
+* :func:`cache_from_numpy` — a reference KV cache tree -> the port's cache.
 
-With these, one package can encode and the other decode.
+With these, one package can encode and the other decode, and both can
+attend over the same cache.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.core.format import BaseTable
 from repro_torch.core.gbdi_fr import FRConfig
+from repro_torch.serving.kv_cache import Cache, KVSpec
 
 #: the reference FRConfig's constructor fields (``delta_bits`` is an
 #: init-only alias and never carried)
@@ -61,5 +66,36 @@ def blob_to_numpy(blob: Mapping[str, Any]) -> dict[str, np.ndarray]:
             for k, v in blob.items() if not k.startswith("_")}
 
 
+def kv_spec_from_fields(fields: Mapping[str, Any] | None = None, **kw: Any) -> KVSpec:
+    """The port's KVSpec from the reference KVSpec's field values (e.g.
+    ``dataclasses.asdict(spec)``, whose ``fr`` is then a field mapping)."""
+    vals = {**(fields or {}), **kw}
+    if isinstance(vals.get("fr"), Mapping):
+        vals["fr"] = config_from_fields(vals["fr"])
+    return KVSpec(**vals)
+
+
+def _bf16_from_numpy(words: Any, device: str | torch.device = "cpu") -> torch.Tensor:
+    """bf16 bit patterns as uint16 (or any int dtype) -> a bf16 tensor."""
+    w16 = np.ascontiguousarray(np.asarray(words).astype(np.uint16)).view(np.int16)
+    return torch.from_numpy(w16).view(torch.bfloat16).to(device)
+
+
+def cache_from_numpy(tree: Mapping[str, Any], device: str | torch.device = "cpu") -> Cache:
+    """A reference KV cache tree handed over as numpy -> the port's cache.
+
+    ``tree`` holds ``k_pages``/``v_pages`` (blob dicts of int arrays),
+    ``k_tail``/``v_tail`` (and ``k_dec``/``v_dec`` for a resident cache) as
+    their uint16 bf16 words, and ``table`` as ``(bases, widths)``.
+    """
+    cache: Cache = {side: blob_from_numpy(tree[side], device) for side in ("k_pages", "v_pages")}
+    for key in ("k_tail", "v_tail", "k_dec", "v_dec"):
+        if key in tree:
+            cache[key] = _bf16_from_numpy(tree[key], device)
+    cache["table"] = table_from_numpy(*tree["table"], device=device)
+    return cache
+
+
 __all__ = ["CONFIG_FIELDS", "blob_from_numpy", "blob_to_numpy",
-           "config_from_fields", "table_from_numpy"]
+           "cache_from_numpy", "config_from_fields", "kv_spec_from_fields",
+           "table_from_numpy"]

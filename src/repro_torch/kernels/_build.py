@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("gbdi_encode", "gbdi_decode")
+KERNELS = ("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
 
 
 def nvcc() -> str:

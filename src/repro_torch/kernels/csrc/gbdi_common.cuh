@@ -13,7 +13,7 @@
 
 namespace gbdi {
 
-constexpr int kThreads = 256;      // block size of both kernels
+constexpr int kThreads = 256;      // block size of the page kernels
 constexpr int kMaxClasses = 5;     // width_set is a subset of {1, 2, 4, 8, 16}
 constexpr int kMiscInts = 16;      // per-block scalars in shared memory
 constexpr int kSmemLimit = 232448; // Hopper: 227 KB of dynamic shared memory
@@ -67,6 +67,152 @@ __device__ __forceinline__ bool flag_of(const unsigned* masks, int p) {
 
 __device__ __forceinline__ int rank_of(const unsigned* masks, const int* prefix, int p) {
   return prefix[p >> 5] + __popc(masks[p >> 5] & ((1u << (p & 31)) - 1u));
+}
+
+// ---------------------------------------------------------------------------
+// One page's decode, shared by the decode kernel (gbdi_decode.cu) and the
+// paged-attention kernel (gbdi_paged_attn.cu).
+// ---------------------------------------------------------------------------
+
+// A config's page geometry as the decode reads it.
+struct PageGeom {
+  const int* meta;  // caps[np*nc] | lane offsets[np*nc]
+  int P, word_bits, num_bases, table_len, nc, np, ptr_bits, ptr_lanes, delta_lanes, outlier_cap;
+  int widths[kMaxClasses];
+};
+
+// Number of leading iparams every page kernel reads (kernel_iparams in
+// gbdi_encode.py): n_pages, page_words, word_bits, num_bases, table_len,
+// num_classes, num_profiles, ptr_bits, ptr_lanes, delta_lanes, outlier_cap,
+// drop_penalty_bits, widths[kMaxClasses].
+constexpr int kPageParams = 12 + kMaxClasses;
+
+inline PageGeom page_geom(const int* meta, const int* ip) {
+  PageGeom g;
+  g.meta = meta;
+  g.P = ip[1];
+  g.word_bits = ip[2];
+  g.num_bases = ip[3];
+  g.table_len = ip[4];
+  g.nc = ip[5];
+  g.np = ip[6];
+  g.ptr_bits = ip[7];
+  g.ptr_lanes = ip[8];
+  g.delta_lanes = ip[9];
+  g.outlier_cap = ip[10];
+  for (int c = 0; c < kMaxClasses; ++c) g.widths[c] = ip[12 + c];
+  return g;
+}
+
+// The decode's shared-memory planes; the caller stages the padded table
+// into `bases`/`cls` once per block.
+struct DecodeSmem {
+  int* code;
+  int* val;
+  int* contrib;
+  unsigned* masks;
+  int* prefix;
+  int* lanes;
+  int* bases;
+  int* cls;
+  unsigned char* isout;
+};
+
+__host__ __device__ inline size_t decode_smem_bytes(int P, int delta_lanes, int table_len) {
+  const int chunks = P / 32;
+  return 4u * static_cast<size_t>(3 * P + 2 * chunks + 1 + delta_lanes + 2 * table_len +
+                                  kMiscInts) +
+         static_cast<size_t>(P);
+}
+
+__device__ inline DecodeSmem carve_decode_smem(int* smem, const PageGeom& g) {
+  DecodeSmem s;
+  const int chunks = g.P / 32;
+  s.code = smem;
+  s.val = s.code + g.P;
+  s.contrib = s.val + g.P;
+  s.masks = reinterpret_cast<unsigned*>(s.contrib + g.P);
+  s.prefix = reinterpret_cast<int*>(s.masks + chunks);
+  s.lanes = s.prefix + chunks + 1;
+  s.bases = s.lanes + g.delta_lanes;
+  s.cls = s.bases + g.table_len;
+  s.isout = reinterpret_cast<unsigned char*>(s.cls + g.table_len + kMiscInts);
+  return s;
+}
+
+// Decode one page (the same words, bit for bit, as fr_decode) and hand word
+// p to emit(p, word); every thread of the block calls it.  It syncs first,
+// so the planes may be reused straight after a previous call, and the
+// caller syncs before reading what emit wrote.  A profile id outside the
+// table matches no layout: every delta stays 0.
+template <class Emit>
+__device__ void decode_page(const PageGeom& g, const DecodeSmem& s, const int* ptrs,
+                            const int* deltas, const int* out_vals, const int* out_idx,
+                            int n_out, int pid, Emit emit) {
+  const int P = g.P, chunks = P / 32, tid = threadIdx.x;
+  __syncthreads();
+  for (int l = tid; l < g.delta_lanes; l += blockDim.x) s.lanes[l] = deltas[l];
+  const unsigned cmask = (1u << g.ptr_bits) - 1u;
+  for (int p = tid; p < P; p += blockDim.x) {
+    const int bit = p * g.ptr_bits;
+    s.code[p] = static_cast<int>((static_cast<unsigned>(ptrs[bit >> 5]) >> (bit & 31)) & cmask);
+    s.val[p] = 0;
+    s.contrib[p] = 0;
+    s.isout[p] = 0;
+  }
+  const bool pid_ok = pid >= 0 && pid < g.np;
+  __syncthreads();
+
+  if (pid_ok) {
+    const int* caps = g.meta + pid * g.nc;
+    const int* offs = g.meta + g.np * g.nc + pid * g.nc;
+    for (int c = 0; c < g.nc; ++c) {
+      const int cap = caps[c], off = offs[c], w = g.widths[c];
+      if (cap == 0) continue;
+      const unsigned fmask = (1u << w) - 1u;
+      const int half = 1 << (w - 1);
+      __syncthreads();
+      for (int p = tid; p < P; p += blockDim.x) {
+        const int code = s.code[p];
+        ballot_chunk(s.masks, p, code < g.num_bases && s.cls[code] == c);
+      }
+      scan_chunks(s.masks, s.prefix, chunks);
+      for (int p = tid; p < P; p += blockDim.x) {
+        if (!flag_of(s.masks, p)) continue;
+        int r = rank_of(s.masks, s.prefix, p);
+        r = r < cap ? r : cap - 1;
+        const int bit = r * w;
+        const int field = static_cast<int>(
+            (static_cast<unsigned>(s.lanes[off + (bit >> 5)]) >> (bit & 31)) & fmask);
+        s.val[p] = field >= half ? field - (1 << w) : field;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int zero_code = g.num_bases, outlier_code = g.num_bases + 1;
+  for (int p = tid; p < P; p += blockDim.x) {
+    const int code = s.code[p];
+    int v = 0;
+    if (code != zero_code && code != outlier_code) {
+      const int bc = code < g.num_bases ? code : g.num_bases - 1;
+      unsigned u = static_cast<unsigned>(s.bases[bc]) + static_cast<unsigned>(s.val[p]);
+      if (g.word_bits == 16) u &= 0xFFFFu;
+      v = static_cast<int>(u);
+    }
+    s.val[p] = v;
+  }
+  // live outlier slots add their value back at their index
+  for (int r = tid; r < g.outlier_cap; r += blockDim.x) {
+    if (r >= n_out) continue;
+    const int idx = out_idx[r];
+    if (idx < 0 || idx >= P) continue;
+    atomicAdd(&s.contrib[idx], out_vals[r]);
+    s.isout[idx] = 1;
+  }
+  __syncthreads();
+
+  for (int p = tid; p < P; p += blockDim.x) emit(p, s.isout[p] ? s.contrib[p] : s.val[p]);
 }
 
 }  // namespace gbdi

@@ -126,7 +126,9 @@ def test_port_imports_no_jax_and_no_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     offenders = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
-    code = ("import sys, repro_torch.eval.run, repro_torch.interop, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.eval.run, repro_torch.interop, repro_torch.kernels.ops, "
+            "repro_torch.serving.kv_cache, repro_torch.serving.engine, "
+            "repro_torch.kernels.gbdi_paged_attn; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
