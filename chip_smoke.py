@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero before the final line:
 5. the paged-attention kernel against its plain version: the serving
    path's Llama-3-405B layer at full size, a Mixtral-8x22B layer, a
    4-token page, an adaptive two-profile config, and a position where
-   every page is masked (tolerances at ``ATTN_TOL``);
+   every page is masked (tolerances at ``ATTN_TOL``); first, on every page
+   slot of each case, its private batched page decode against the decode
+   kernel, bit for bit (``gbdi_paged_attn.decode_pages``, which counts no
+   launch);
 6. the serving path through ``KVSession`` at the attention-layer width of
    Llama-3-405B (8 KV heads of 128, 128 query heads), batch 8, 32,768
    tokens, ``KV_FR``: prefill 32,760 tokens, then 7 decode steps, once with
@@ -197,7 +200,7 @@ def main() -> int:
     w[:, ::9] = 20000 + rng.integers(-100, 100, (1024, 29))
     w[512:, ::2] = rng.integers(30000, 65536, (512, 128))
     x = torch.as_tensor((w & 0xFFFF).astype(np.int32), device=dev)
-    spill_table = interop.table_from_numpy([1000, 1000, 20000], [4, 8, 8], dev)
+    spill_table = interop.table_from_numpy([1000, 1000, 20000], [4, 8, 8], device=dev)
     pb = enc_mod.gbdi_encode_plain(x, spill_table, spill)
     if not (int(pb["n_spilled"].sum()) > 0 and int(pb["n_dropped"].sum()) > 0):
         raise AssertionError("the forced spill/drop set spilled or dropped nothing")
@@ -210,7 +213,7 @@ def main() -> int:
     w = gbases.astype(np.int64)[rng.integers(0, 6, (3, 256))] + rng.integers(-120, 120, (3, 256))
     w[:, ::7] = 0
     x = torch.as_tensor((w & 0xFFFF).astype(np.int32), device=dev)
-    gtable = interop.table_from_numpy(gbases, [4, 8, 4, 8, 4, 8], dev)
+    gtable = interop.table_from_numpy(gbases, [4, 8, 4, 8, 4, 8], device=dev)
     kb = enc_mod.gbdi_encode(x, gtable, golden)
     crcs = [zlib.crc32(serialize_page({k: v[i] for k, v in kb.items()}, golden)) for i in range(3)]
     if crcs != GOLDEN_CRCS:
@@ -292,9 +295,28 @@ def main() -> int:
                 if k not in ("n_spilled", "n_dropped")}
 
     attn_err = {"out": 0.0, "m": 0.0, "l": 0.0}
+    pass_decode = {"pages": 0, "mismatched_words": 0}
+
+    def check_pass_decode(label, pk, pv, table, cfg, geom) -> None:
+        """The kernel's batched pass decode vs the decode kernel, every slot."""
+        batch, n_slots = pk["n_out"].shape
+        got = pa_mod.decode_pages(pk, pv, table, n_slots, cfg, **geom)
+        bad = 0
+        for words, pages in zip(got, (pk, pv)):
+            flat = {k: v.reshape((batch * n_slots,) + v.shape[2:]) for k, v in pages.items()}
+            want = dec_mod.gbdi_decode(flat, table, cfg).reshape(words.shape)
+            bad += int((words != want).sum())
+        sync()
+        pass_decode["pages"] += 2 * batch * n_slots
+        pass_decode["mismatched_words"] += bad
+        log(f"[5] {label}: pass decode vs gbdi_decode on {2 * batch * n_slots} pages "
+            f"({pa_mod.pass_slots(cfg, **geom)} slots a pass): {bad} words differ")
+        if bad:
+            raise AssertionError(f"{label}: the pass decode differs from gbdi_decode in {bad} words")
 
     def check_attn(label, q, pk, pv, table, pos, cfg, n_kv, hd, groups):
         geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+        check_pass_decode(label, pk, pv, table, cfg, geom)
         acc, m, l = pa_mod.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
         sync()
         pms = event_ms(lambda: box.__setitem__("p", pa_mod.paged_attention_decode_plain(
@@ -344,7 +366,10 @@ def main() -> int:
         q = torch.randn(batch, n_kv, groups, hd, generator=gen, device=dev)
         check_attn(label, q, pk, pv, table, pos, cfg, n_kv, hd, groups)
         del ks, vs, pk, pv
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    log(f"[5] pass decode: {pass_decode['pages']} pages compared, "
+        f"{pass_decode['mismatched_words']} words differ; kernel C vs plain, largest errors "
+        f"{attn_err} (tolerances {ATTN_TOL})")
 
     # -- phase 6: the serving path, counted ------------------------------------
     B, n_kv, hd, H = SERVE["batch"], SERVE["n_kv"], SERVE["hd"], SERVE["heads"]

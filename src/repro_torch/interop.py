@@ -13,7 +13,9 @@ plain fields, and gets the port's objects back:
 * :func:`cache_from_numpy` — a reference KV cache tree -> the port's cache.
 
 With these, one package can encode and the other decode, and both can
-attend over the same cache.
+attend over the same cache.  Like every entry point of the port, the
+helpers that make tensors put them on the CUDA card unless ``device``
+names another (``device="cpu"`` for the host).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.format import BaseTable
 from repro_torch.core.gbdi_fr import FRConfig
 from repro_torch.serving.kv_cache import Cache, KVSpec
@@ -33,7 +36,8 @@ CONFIG_FIELDS = ("word_bits", "page_words", "num_bases", "width_set",
 
 
 def table_from_numpy(bases: Any, widths: Any,
-                     device: str | torch.device = "cpu") -> BaseTable:
+                     device: str | torch.device | None = None) -> BaseTable:
+    device = resolve_device(device)
     return BaseTable(
         torch.as_tensor(np.array(bases, dtype=np.int32), device=device),
         torch.as_tensor(np.array(widths, dtype=np.int32), device=device),
@@ -54,8 +58,9 @@ def config_from_fields(fields: Mapping[str, Any] | None = None, **kw: Any) -> FR
 
 
 def blob_from_numpy(blob: Mapping[str, Any],
-                    device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+                    device: str | torch.device | None = None) -> dict[str, torch.Tensor]:
     """Blob arrays (any int dtype) -> contiguous int32 tensors on ``device``."""
+    device = resolve_device(device)
     return {k: torch.as_tensor(np.array(v, dtype=np.int32), device=device).contiguous()
             for k, v in blob.items()}
 
@@ -75,23 +80,27 @@ def kv_spec_from_fields(fields: Mapping[str, Any] | None = None, **kw: Any) -> K
     return KVSpec(**vals)
 
 
-def _bf16_from_numpy(words: Any, device: str | torch.device = "cpu") -> torch.Tensor:
+def _bf16_from_numpy(words: Any, device: str | torch.device | None = None) -> torch.Tensor:
     """bf16 bit patterns as uint16 (or any int dtype) -> a bf16 tensor."""
+    device = resolve_device(device)
     w16 = np.ascontiguousarray(np.asarray(words).astype(np.uint16)).view(np.int16)
     return torch.from_numpy(w16).view(torch.bfloat16).to(device)
 
 
-def cache_from_numpy(tree: Mapping[str, Any], device: str | torch.device = "cpu") -> Cache:
+def cache_from_numpy(tree: Mapping[str, Any],
+                     device: str | torch.device | None = None) -> Cache:
     """A reference KV cache tree handed over as numpy -> the port's cache.
 
     ``tree`` holds ``k_pages``/``v_pages`` (blob dicts of int arrays),
     ``k_tail``/``v_tail`` (and ``k_dec``/``v_dec`` for a resident cache) as
     their uint16 bf16 words, and ``table`` as ``(bases, widths)``.
     """
-    cache: Cache = {side: blob_from_numpy(tree[side], device) for side in ("k_pages", "v_pages")}
+    device = resolve_device(device)
+    cache: Cache = {side: blob_from_numpy(tree[side], device=device)
+                    for side in ("k_pages", "v_pages")}
     for key in ("k_tail", "v_tail", "k_dec", "v_dec"):
         if key in tree:
-            cache[key] = _bf16_from_numpy(tree[key], device)
+            cache[key] = _bf16_from_numpy(tree[key], device=device)
     cache["table"] = table_from_numpy(*tree["table"], device=device)
     return cache
 

@@ -99,7 +99,8 @@ def _parity_pages(cfg, n_pages=4):
 
 
 def _carry(jtable):
-    return interop.table_from_numpy(np.asarray(jtable.bases), np.asarray(jtable.widths))
+    return interop.table_from_numpy(np.asarray(jtable.bases), np.asarray(jtable.widths),
+                                   device="cpu")
 
 
 def _assert_codec_parity(x, jtable, jcfg, tcfg):
@@ -113,7 +114,7 @@ def _assert_codec_parity(x, jtable, jcfg, tcfg):
         np.testing.assert_array_equal(tb[k].numpy(), jb_np[k], err_msg=k)
     j_dec = np.asarray(jfr.fr_decode(jb, jtable, jcfg))
     # port decodes the JAX blob, JAX decodes the port blob
-    t_of_j = tfr.fr_decode(interop.blob_from_numpy(jb_np), ttable, tcfg).numpy()
+    t_of_j = tfr.fr_decode(interop.blob_from_numpy(jb_np, device="cpu"), ttable, tcfg).numpy()
     j_of_t = np.asarray(jfr.fr_decode(
         {k: jnp.asarray(v) for k, v in interop.blob_to_numpy(tb).items()}, jtable, jcfg))
     np.testing.assert_array_equal(t_of_j, j_dec)
@@ -376,7 +377,8 @@ def golden_case():
 def test_golden_crcs_without_jax():
     kw, bases, widths, x = golden_case()
     cfg = tfr.FRConfig(**kw)
-    blob = tfr.fr_encode(torch.from_numpy(x), interop.table_from_numpy(bases, widths), cfg)
+    blob = tfr.fr_encode(torch.from_numpy(x), interop.table_from_numpy(bases, widths, device="cpu"),
+                         cfg)
     assert "profile" not in blob
     crcs = [zlib.crc32(t_serialize({k: v[i] for k, v in blob.items()}, cfg))
             for i in range(3)]

@@ -72,7 +72,7 @@ def test_pad_table_matches_reference(ref, num_bases):
     bases = rng.integers(-2**31, 2**31 - 1, num_bases).astype(np.int32)
     widths = rng.choice([4, 8, 5], num_bases).astype(np.int32)   # 5: foreign width
     jb, jcls = ref.enc.pad_table(ref.fr.BaseTable(jnp.asarray(bases), jnp.asarray(widths)), jc)
-    tb, tcls = t_enc.pad_table(interop.table_from_numpy(bases, widths), tc)
+    tb, tcls = t_enc.pad_table(interop.table_from_numpy(bases, widths, device="cpu"), tc)
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(tcls.numpy(), np.asarray(jcls))
 
@@ -141,7 +141,8 @@ def test_tensor_roundtrip_matches_reference(ref, backend):
     t = torch.from_numpy(v).to(torch.bfloat16)
     jpages, _ = jfr.tensor_to_pages(jnp.asarray(v).astype(jnp.bfloat16), jc)
     jtable = jfr.fit_fr_bases(jpages, jc)
-    ttable = interop.table_from_numpy(np.asarray(jtable.bases), np.asarray(jtable.widths))
+    ttable = interop.table_from_numpy(np.asarray(jtable.bases), np.asarray(jtable.widths),
+                                     device="cpu")
     blob, meta = ops.encode_tensor(t, ttable, tc, backend)
     jblob = jfr.fr_encode(jpages, jtable, jc)
     for k in jblob:
@@ -157,7 +158,7 @@ def test_interop_blob_roundtrip():
     x = torch.from_numpy(_clustered(cfg, 3, 4))
     table = tfr.fit_fr_bases(x, cfg)
     blob = tfr.fr_encode(x, table, cfg)
-    back = interop.blob_from_numpy(interop.blob_to_numpy(blob))
+    back = interop.blob_from_numpy(interop.blob_to_numpy(blob), device="cpu")
     assert set(back) == set(blob)
     for k in blob:
         assert back[k].dtype == torch.int32 and torch.equal(back[k], blob[k])
@@ -192,7 +193,7 @@ def test_kernels_match_plain_on_card(cuda_device, kw):
     cfg = tfr.FRConfig(**(SMALL if kw == "foreign" else kw))
     if kw is SPILL:
         x = torch.from_numpy(_spill_pages(64)).to(cuda_device)
-        table = interop.table_from_numpy([1000, 1000, 20000], [4, 8, 8], cuda_device)
+        table = interop.table_from_numpy([1000, 1000, 20000], [4, 8, 8], device=cuda_device)
     else:
         x = torch.from_numpy(_clustered(cfg, 64, 1)).to(cuda_device)
         table = tfr.fit_fr_bases(x, cfg)

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import interop
 from repro_torch.core import gbdi_fr as tfr
+from repro_torch.kernels import _build
 from repro_torch.kernels import gbdi_encode as t_enc
 from repro_torch.kernels import gbdi_paged_attn as t_pa
 
@@ -83,7 +84,7 @@ def make_pages(ref, fr_kw, n_kv, hd, slots, seed):
 
     return SimpleNamespace(jcfg=jcfg, cfg=tcfg, table=table, k=pages(kw), v=pages(vw), pt=pt,
                            ttable=interop.table_from_numpy(np.asarray(table.bases),
-                                                           np.asarray(table.widths)))
+                                                           np.asarray(table.widths), device="cpu"))
 
 
 def assert_state_close(got, want):
@@ -128,7 +129,8 @@ def test_plain_matches_pallas_interpret(ref, geom):
             {k: jnp.asarray(v) for k, v in d.v.items()}, d.table, jnp.int32(pos), d.jcfg,
             n_kv=n_kv, hd=hd, groups=groups, interpret=True)
         got = t_pa.paged_attention_decode_plain(
-            torch.from_numpy(q), interop.blob_from_numpy(d.k), interop.blob_from_numpy(d.v),
+            torch.from_numpy(q), interop.blob_from_numpy(d.k, device="cpu"),
+            interop.blob_from_numpy(d.v, device="cpu"),
             d.ttable, pos, d.cfg, n_kv=n_kv, hd=hd, groups=groups, chunk_slots=2)
         assert_state_close(got, want)
         if pos < d.pt:     # every page masked
@@ -139,7 +141,8 @@ def test_wrapper_on_cpu_runs_the_plain_version(ref):
     fr_kw, n_kv, hd, groups, slots = GEOMS[0]
     d = make_pages(ref, fr_kw, n_kv, hd, slots, seed=3)
     q = torch.from_numpy(np.random.default_rng(2).normal(0, 1, (B, n_kv, groups, hd)).astype(np.float32))
-    args = (q, interop.blob_from_numpy(d.k), interop.blob_from_numpy(d.v), d.ttable, 7, d.cfg)
+    args = (q, interop.blob_from_numpy(d.k, device="cpu"), interop.blob_from_numpy(d.v, device="cpu"),
+            d.ttable, 7, d.cfg)
     before = t_pa.launch_count
     got = t_pa.paged_attention_decode(*args, n_kv=n_kv, hd=hd, groups=groups)
     want = t_pa.paged_attention_decode_plain(*args, n_kv=n_kv, hd=hd, groups=groups)
@@ -194,18 +197,138 @@ def test_geometry_and_device_errors():
         t_pa.paged_attention_decode(q[:, :2], meta, meta, [0], 3, cfg, n_kv=2, hd=64, groups=1)
 
 
+KV_FR = dict(word_bits=16, page_words=2048, num_bases=14, width_set=(8,),
+             bucket_caps=(2048,), outlier_cap=64)
+ADAPTIVE_2048 = dict(word_bits=16, page_words=2048, num_bases=14, width_set=(4, 8),
+                     cap_profiles=((192, 1856), (64, 1024)), outlier_cap=64)
+
+
 def test_smem_budget_check():
-    """The shared-memory check stands where the VMEM check stood: the serving
-    path's Llama-3-405B layer fits one block, a head count past 227 KB raises."""
-    kv = tfr.FRConfig(word_bits=16, page_words=2048, num_bases=14, width_set=(8,),
-                      bucket_caps=(2048,), outlier_cap=64)
+    """The shared-memory check stands where the VMEM check stood, and picks
+    the pass size: the serving path's Llama-3-405B layer fits up to 7 page
+    slots a pass and takes 4 (8 tokens, one whole tile); rows past one
+    block's 128 go to a second row chunk of the same size; a page too large
+    for even one slot a pass raises."""
+    kv = tfr.FRConfig(**KV_FR)
     need = t_pa.smem_bytes(kv, **LLAMA405B)
-    assert need == 194288 <= t_enc.SMEM_LIMIT_BYTES
-    t_pa.check_smem(kv, **LLAMA405B)
-    t_pa.check_smem(kv, n_kv=8, hd=128, groups=6)               # Mixtral-8x22B
+    assert need == 162352 <= t_enc.SMEM_LIMIT_BYTES
+    assert t_pa.check_smem(kv, **LLAMA405B) == t_pa.pass_slots(kv, **LLAMA405B) == 4
+    assert t_pa.smem_bytes(kv, **LLAMA405B, n_slots=7) == 230704 <= t_enc.SMEM_LIMIT_BYTES
+    assert t_pa.smem_bytes(kv, **LLAMA405B, n_slots=8) > t_enc.SMEM_LIMIT_BYTES
+    assert t_pa.check_smem(kv, n_kv=8, hd=128, groups=6) == 8           # Mixtral-8x22B
+    assert t_pa.chunk_rows(8 * 32, 128) == 128
+    assert t_pa.smem_bytes(kv, n_kv=8, hd=128, groups=32) == need
+    big = tfr.FRConfig(word_bits=16, page_words=32768, num_bases=14, width_set=(8,),
+                       bucket_caps=(32768,), outlier_cap=64)
+    assert t_pa.pass_slots(big, **LLAMA405B) == 0
+    assert t_pa.smem_bytes(big, **LLAMA405B, n_slots=1) > t_enc.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError, match="shared memory"):
-        t_pa.check_smem(kv, n_kv=8, hd=128, groups=32)
-    assert t_pa.smem_bytes(kv, n_kv=8, hd=128, groups=32) > t_enc.SMEM_LIMIT_BYTES
+        t_pa.check_smem(big, **LLAMA405B)
+
+
+# the five shapes the chip smoke test holds kernel C to: (fr, n_kv, hd, groups,
+# pass size, page tokens)
+PHASE5 = {
+    "llama3-405b": (KV_FR, 8, 128, 16, 4, 2),
+    "mixtral-8x22b": (KV_FR, 8, 128, 6, 8, 2),
+    "4-token-pages": (KV_FR, 4, 128, 8, 8, 4),
+    "adaptive": (ADAPTIVE_2048, 8, 128, 4, 8, 2),
+    "small-page": (FR8, 2, 64, 2, 8, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(PHASE5))
+def test_pass_slots_at_phase5_shapes(case):
+    fr_kw, n_kv, hd, groups, want, pt = PHASE5[case]
+    cfg = tfr.FRConfig(**fr_kw)
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+    n = t_pa.pass_slots(cfg, **geom)
+    assert n == want and t_pa.page_tokens(cfg, n_kv, hd) == pt
+    assert t_pa.smem_bytes(cfg, **geom) == t_pa.smem_bytes(cfg, **geom, n_slots=n) <= t_enc.SMEM_LIMIT_BYTES
+    assert (n * pt) % t_pa.TILE_TOKENS == 0        # whole 8-token tiles
+    ip = t_pa.attn_iparams(cfg, **geom)
+    assert ip[-1] == n and ip[-2] == pt
+
+
+@pytest.mark.parametrize("kg,hd,rows", [
+    (128, 128, 128), (256, 128, 128), (48, 128, 48), (32, 64, 32), (512, 64, 256),
+    (1000, 32, 512), (64, 256, 16), (8, 200, 8), (16, 16, 16),
+])
+def test_chunk_rows(kg, hd, rows):
+    """A block holds 16 warps of 32 / channels-per-lane rows (1 at 8 channels
+    a lane); more rows take further chunks of the same size."""
+    assert t_pa.chunk_rows(kg, hd) == rows
+
+
+def test_pass_slots_fall_as_groups_grow():
+    kv = tfr.FRConfig(**KV_FR)
+    ns = [t_pa.pass_slots(kv, n_kv=8, hd=128, groups=g) for g in (1, 2, 4, 8, 12, 16)]
+    assert ns == sorted(ns, reverse=True) and ns[0] == 8 and ns[-1] == 4
+    sizes = [t_pa.smem_bytes(kv, n_kv=8, hd=128, groups=g, n_slots=4) for g in (1, 2, 4, 8, 16)]
+    assert sizes == sorted(sizes) and len(set(sizes)) == len(sizes)
+
+
+@pytest.mark.parametrize("n_valid,batch,pass_n", [
+    (0, 8, 4), (1, 8, 4), (3, 2, 4), (4, 2, 8), (5, 2, 4), (7, 1, 4), (13, 3, 8),
+    (101, 2, 4), (4095, 2, 8), (16383, 8, 4), (16383, 1, 4),
+], ids=lambda v: str(v))
+def test_splits_cover_n_valid(n_valid, batch, pass_n):
+    """No empty split, the splits cover n_valid exactly, and a run is a whole
+    number of passes whenever n_valid holds one."""
+    splits, run = t_pa._splits(n_valid, batch, sms=132, per_sm=1, pass_n=pass_n)
+    assert splits >= 1 and run >= 1
+    if n_valid == 0:
+        assert splits == 1
+        return
+    assert (splits - 1) * run < n_valid <= splits * run
+    assert run % pass_n == 0
+    if n_valid >= pass_n * 132 * 2:
+        assert splits * batch >= 132 // 2       # the grid fills the card
+
+
+def test_splits_fill_whole_waves():
+    """At the serving shape the grid is two whole waves of the 132 SMs."""
+    assert t_pa._splits(16383, 8, sms=132, per_sm=1, pass_n=4) == (33, 500)
+    splits, run = t_pa._splits(16383, 8, sms=132, per_sm=2, pass_n=4)
+    assert (splits * 8) % 264 <= 8 and (splits - 1) * run < 16383 <= splits * run
+    splits, _ = t_pa._splits(16383, 2, sms=132, per_sm=1, pass_n=4, chunks=2)
+    assert splits * 2 * 2 <= 132 * t_pa.MAX_WAVES
+
+
+@pytest.mark.parametrize("bad", ["word_bits=32", "hd=512"])
+def test_wrapper_raises_outside_kernel_geometry(bad):
+    """The kernel reads only bf16 pages of heads up to 256 channels; both
+    paths refuse the rest, so the CPU answers as the card would."""
+    if bad == "word_bits=32":
+        cfg = tfr.FRConfig(word_bits=32, page_words=256, num_bases=14, width_set=(8, 16),
+                           bucket_caps=(64, 192), outlier_cap=16)
+        n_kv, hd, match = 2, 64, "16-bit"
+    else:
+        cfg = tfr.FRConfig(word_bits=16, page_words=1024, num_bases=14, width_set=(8,),
+                           bucket_caps=(1024,), outlier_cap=16)
+        n_kv, hd, match = 1, 512, "head_dim"
+    pages = {"ptrs": torch.zeros(B, 2, 1, dtype=torch.int32)}
+    q = torch.zeros(B, n_kv, 1, hd)
+    with pytest.raises(ValueError, match=match):
+        t_pa.paged_attention_decode(q, pages, pages, [0], 3, cfg, n_kv=n_kv, hd=hd, groups=1)
+    with pytest.raises(ValueError, match=match):
+        t_pa.decode_pages(pages, pages, [0], 1, cfg, n_kv=n_kv, hd=hd, groups=1)
+
+
+def test_decode_pages_on_cpu_is_fr_decode():
+    """On the CPU the pass decode's entry point gives fr_decode's words of the
+    first n_valid slots of every batch row."""
+    cfg = tfr.FRConfig(**ADAPTIVE)
+    n_kv, hd, groups, slots = 2, 64, 2, 5
+    pk, pv, table, _ = _card_pages(cfg, n_kv, hd, slots, torch.device("cpu"), seed=9)
+    before = t_pa.launch_count
+    k, v = t_pa.decode_pages(pk, pv, table, 3, cfg, n_kv=n_kv, hd=hd, groups=groups)
+    assert t_pa.launch_count == before
+    for got, pages in ((k, pk), (v, pv)):
+        assert got.shape == (B, 3, cfg.page_words) and got.dtype == torch.int32
+        for b in range(B):
+            want = tfr.fr_decode({key: t[b, :3] for key, t in pages.items()}, table, cfg)
+            assert torch.equal(got[b], want)
 
 
 # ---------------------------------------------------------------------------
@@ -228,16 +351,25 @@ def _card_pages(cfg, n_kv, hd, slots, dev, seed):
     return pages(kw), pages(vw), table, pt
 
 
+def _single_width(page_words):
+    return dict(word_bits=16, page_words=page_words, num_bases=14, width_set=(8,),
+                bucket_caps=(page_words,), outlier_cap=16)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["pt2", "pt4", "pt1", "adaptive", "llama405b"])
+@pytest.mark.parametrize("case", ["pt2", "pt4", "pt1", "adaptive", "llama405b",
+                                  "hd256", "hd32", "hd80", "hd33"])
 def test_kernel_matches_plain_on_card(cuda_device, case):
-    cfg = tfr.FRConfig(**(ADAPTIVE if case == "adaptive" else FR48 if case == "pt4" else FR8))
+    """Every channels-per-lane build of the kernel (hd 32, 64, 80 and 128,
+    256), the odd-hd path (no channel pairs) and a page of 32 tokens."""
+    cfg = tfr.FRConfig(**{"adaptive": ADAPTIVE, "pt4": FR48, "llama405b": KV_FR,
+                          "hd256": KV_FR, "hd80": _single_width(640),
+                          "hd33": _single_width(4224)}.get(case, FR8))
     n_kv, hd, groups, slots = {"pt2": (2, 64, 2, 37), "pt4": (1, 64, 4, 40),
                                "pt1": (2, 128, 3, 50), "adaptive": (2, 64, 2, 33),
-                               "llama405b": (8, 128, 16, 64)}[case]
-    if case == "llama405b":
-        cfg = tfr.FRConfig(word_bits=16, page_words=2048, num_bases=14, width_set=(8,),
-                           bucket_caps=(2048,), outlier_cap=64)
+                               "llama405b": (8, 128, 16, 64), "hd256": (4, 256, 4, 21),
+                               "hd32": (2, 32, 8, 30), "hd80": (1, 80, 3, 25),
+                               "hd33": (1, 33, 2, 6)}[case]
     pk, pv, table, pt = _card_pages(cfg, n_kv, hd, slots, cuda_device, seed=slots)
     q = torch.randn(B, n_kv, groups, hd, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0))
@@ -256,12 +388,35 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.cuda
 def test_smem_formula_matches_kernel_source(cuda_device):
-    from repro_torch.kernels import _build
-
-    lib = _build.load("gbdi_paged_attn")
+    """The wrapper's shared-memory formula equals the kernel source's at every
+    pass size, and the runtime holds at least one block per SM."""
+    lib = t_pa._lib()
     for kw, geom in ((FR8, dict(n_kv=2, hd=64, groups=2)), (ADAPTIVE, dict(n_kv=1, hd=64, groups=4)),
-                     (dict(word_bits=16, page_words=2048, num_bases=14, width_set=(8,),
-                           bucket_caps=(2048,), outlier_cap=64), LLAMA405B)):
+                     (KV_FR, LLAMA405B), (KV_FR, dict(n_kv=8, hd=128, groups=32)),
+                     (ADAPTIVE_2048, dict(n_kv=8, hd=128, groups=4))):
         cfg = tfr.FRConfig(**kw)
-        ip = _build.int_array(t_pa.attn_iparams(cfg, **geom))
-        assert lib.gbdi_paged_attn_smem_bytes(ip) == t_pa.smem_bytes(cfg, **geom)
+        for n in range(1, t_pa.MAX_PASS_SLOTS + 1):
+            ip = _build.int_array(t_pa.attn_iparams(cfg, **geom, pass_n=n))
+            assert lib.gbdi_paged_attn_smem_bytes(ip) == t_pa.smem_bytes(cfg, **geom, n_slots=n)
+        assert t_pa._blocks_per_sm(cfg, geom["n_kv"], geom["hd"], geom["groups"], 0) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PHASE5))
+def test_pass_decode_matches_decode_kernel(cuda_device, case):
+    """The kernel's batched pass decode gives the decode kernel's words bit for
+    bit on every page slot, adaptive profiles included, at a count of slots
+    that leaves a short last pass."""
+    from repro_torch.kernels import gbdi_decode as t_dec
+
+    fr_kw, n_kv, hd, groups, n, pt = PHASE5[case]
+    cfg = tfr.FRConfig(**fr_kw)
+    slots = 5 * n + 3
+    pk, pv, table, _ = _card_pages(cfg, n_kv, hd, slots, cuda_device, seed=slots + n_kv)
+    for n_valid in (slots, slots - 1, n - 1, 1):
+        k, v = t_pa.decode_pages(pk, pv, table, n_valid, cfg, n_kv=n_kv, hd=hd, groups=groups)
+        for got, pages in ((k, pk), (v, pv)):
+            flat = {key: t[:, :n_valid].reshape((B * n_valid,) + t.shape[2:]).contiguous()
+                    for key, t in pages.items()}
+            want = t_dec.gbdi_decode(flat, table, cfg).reshape(B, n_valid, cfg.page_words)
+            assert torch.equal(got, want), f"{int((got != want).sum())} words differ"

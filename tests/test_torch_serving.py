@@ -91,7 +91,7 @@ def setup(ref, name, seed=0, resident=False):
         ref.jnp.asarray(words(np.concatenate([ks, vs])).astype(np.int32).reshape(-1)), jspec.fr)
     table_np = (np.asarray(jtable.bases), np.asarray(jtable.widths))
     return SimpleNamespace(jspec=jspec, spec=spec, ks=ks, vs=vs, jtable=jtable, table_np=table_np,
-                           table=interop.table_from_numpy(*table_np), rng=rng)
+                           table=interop.table_from_numpy(*table_np, device="cpu"), rng=rng)
 
 
 def jax_encode(ref, d, w):
@@ -269,7 +269,7 @@ def test_every_flush_matches_reference_encode(ref, name):
             for f, v in want.items():
                 np.testing.assert_array_equal(cache[f"{side}_pages"][f][:, slots].numpy(),
                                               v.reshape((B, ppr) + v.shape[1:]), err_msg=f)
-    assert_cache_equal(cache, interop.cache_from_numpy(jax_tree(ref, d, n)))
+    assert_cache_equal(cache, interop.cache_from_numpy(jax_tree(ref, d, n), device="cpu"))
     if name == "adaptive":
         assert len(set(cache["k_pages"]["profile"].flatten().tolist())) > 1
 
@@ -346,7 +346,7 @@ def test_attention_matches_reference(ref, backend):
     q = d.rng.normal(0, 1, (B, 1, 8, d.spec.head_dim)).astype(np.float32)   # G = 4
     for n in (2, 4, 13, 24, 31):
         tree = jax_tree(ref, d, n)
-        cache = interop.cache_from_numpy(tree)
+        cache = interop.cache_from_numpy(tree, device="cpu")
         got = tkv.attention_decode(d.spec, torch.from_numpy(q), cache, n - 1, backend=backend)
         assert got.dtype == torch.bfloat16
         assert_within_one_ulp(got, compose(ref, d, tree, q, n - 1))
@@ -395,7 +395,7 @@ def test_backend_errors(ref):
 def test_session_needs_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = tkv.KVSpec(n_kv=2, head_dim=16, max_len=8, fr=tfr.FRConfig(**FR))
-    table = interop.table_from_numpy(np.arange(14), np.full(14, 8))
+    table = interop.table_from_numpy(np.arange(14), np.full(14, 8), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KVSession(spec, B, table)
     assert KVSession(spec, B, table, device="cpu").cache["k_tail"].device.type == "cpu"
