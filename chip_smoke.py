@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero before the final line:
    and print what ``-Xptxas -v`` reports;
 2. encode and decode against their plain PyTorch versions on the card, bit
    for bit: every page of the two codec streams (in chunks), an adaptive
-   multi-profile config, a forced spill/drop page set, and the golden-CRC
-   pages of the format's serialization;
+   multi-profile config, a forced spill/drop page set, a set of 30-base
+   tables with ties, dead entries and wrapping deltas (16- and 32-bit
+   words), and the golden-CRC pages of the format's serialization;
 3. the codec path through ``repro_torch.eval.run.evaluate_cell`` at 256 MiB
    per stream: ``ml_kvcache_bf16`` (16-bit config) and ``605.mcf_s`` (32-bit
    config), fit -> encode -> decode -> verify (mismatched words <= dropped),
@@ -23,8 +24,9 @@ Phases, in order; any failure exits non-zero before the final line:
    single PyTorch call computes either function (``library_ms`` is null);
 5. the paged-attention kernel against its plain version: the serving
    path's Llama-3-405B layer at full size, a Mixtral-8x22B layer, a
-   4-token page, an adaptive two-profile config, and a position where
-   every page is masked (tolerances at ``ATTN_TOL``); first, on every page
+   4-token page, an adaptive two-profile config, a position where every
+   page is masked, and a 512-channel head that the kernel splits into two
+   channel chunks (tolerances at ``ATTN_TOL``); first, on every page
    slot of each case, its private batched page decode against the decode
    kernel, bit for bit (``gbdi_paged_attn.decode_pages``, which counts no
    launch);
@@ -206,6 +208,33 @@ def main() -> int:
         raise AssertionError("the forced spill/drop set spilled or dropped nothing")
     compare("forced-spill-drop", x, spill_table, spill)
 
+    # 30 bases in 4 clusters (several bases of a class fit one word: first
+    # index wins), a third of them of a width outside the set (dead),
+    # clusters at both ends of the word range (wrapping deltas), caps below
+    # the page (spills and drops)
+    for bits, widths in ((32, (8, 16)), (16, (4, 8))):
+        tcfg = FRConfig(word_bits=bits, page_words=2048, num_bases=30, width_set=widths,
+                        bucket_caps=(256, 1536), outlier_cap=64)
+        rng = np.random.default_rng(bits)
+        span = 1 << bits
+        centers = np.array([span // 2 - 40, span // 2 + 20, span // 3, span - 60], np.int64)
+        tb = centers[rng.integers(0, 4, 30)] + rng.integers(-6, 7, 30)
+        tb[:4] = centers
+        tw = rng.choice([widths[0], widths[1], 2], 30)
+        tw[:4] = widths[0]
+        w = centers[rng.integers(0, 4, (4096, 2048))]
+        w += np.where(rng.random((4096, 2048)) < 0.6, rng.integers(-5, 6, (4096, 2048)),
+                      rng.integers(-100, 101, (4096, 2048)))
+        w[:, ::11] = 0
+        w[:, 3::29] = rng.integers(0, span, w[:, 3::29].shape)
+        to32 = lambda v: torch.as_tensor((v % span).astype(np.uint32).view(np.int32), device=dev)  # noqa: E731
+        x = to32(w)
+        ttable = interop.table_from_numpy(to32(tb).cpu().numpy(), tw.astype(np.int32), device=dev)
+        pb = enc_mod.gbdi_encode_plain(x[:64], ttable, tcfg)
+        if not (int(pb["n_spilled"].sum()) > 0 and int(pb["n_dropped"].sum()) > 0):
+            raise AssertionError("the tie/dead-entry set spilled or dropped nothing")
+        compare(f"ties-dead-wrap-{bits}bit", x, ttable, tcfg)
+
     golden = FRConfig(word_bits=16, page_words=256, num_bases=6, width_set=(4, 8),
                       bucket_caps=(64, 192), outlier_cap=16)
     gbases = np.array([1000, 5000, 9000, 20000, 40000, 60000], np.int32)
@@ -354,6 +383,7 @@ def main() -> int:
                                           width_set=(4, 8), cap_profiles=((192, 1856), (64, 1024)),
                                           outlier_cap=64), 2, 4096, 8, 128, 4, 4000, True),
         ("every page masked (pos < pt)", kv16, 2, 4096, 8, 128, 6, 1, False),
+        ("hd-512 head, two channel chunks", kv16, 2, 4096, 1, 512, 8, 4095, False),
     ]
     for label, cfg, batch, n_tok, n_kv, hd, groups, pos, sparse in cases:
         ks, vs = kv_cache_data(batch, n_tok, n_kv, hd, sparse), kv_cache_data(batch, n_tok, n_kv, hd, sparse)

@@ -56,7 +56,12 @@
 //    alpha + p.V runs in registers.  q stays in shared memory.
 //
 // Rows past one block (16 warps x 8 rows at 4 channels a lane) go to
-// further row chunks on grid axis z, each decoding the pages again.  Blocks
+// further row chunks on grid axis z, each decoding the pages again.  Heads
+// wider than 256 channels also split into channel chunks on axis z (z = row
+// chunk x channel chunks + channel chunk): each chunk scores its rows over
+// the whole head, the K tile taken 256 channels at a time, and accumulates V
+// over its own 256 channels only, so its registers stay those of hd 256;
+// m and l are the same in every channel chunk and chunk 0 writes them.  Blocks
 // run in no order, so each writes its partial (acc, m, l); kernel 2 merges
 // the splits with the merge_softmax identity.  Masking uses -1e30 and p = 0
 // where a score is <= -1e29, so an empty run merges as (acc, m, l) =
@@ -81,7 +86,8 @@ constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kMergeThreads = 128;
 constexpr int kTile = 8;         // tokens per attention tile
 constexpr int kMaxPassSlots = 8; // N is at most this
-constexpr int kMaxCpl = 8;       // channels per lane: head_dim <= 256
+constexpr int kMaxCpl = 8;       // channels per lane of one channel chunk
+constexpr int kChunkChannels = 32 * kMaxCpl;  // channels of one channel chunk
 
 struct BlobPtrs {
   const int* ptrs;     // (B, S, ptr_lanes)
@@ -117,6 +123,11 @@ __host__ __device__ inline int cpl_of(int hd) {
   for (int c = 1; c <= kMaxCpl; c *= 2)
     if (32 * c >= hd) return c;
   return 0;
+}
+
+// channel chunks of a head: 1 up to 256 channels, else one per 256
+__host__ __device__ inline int chan_chunks(int hd) {
+  return hd <= kChunkChannels ? 1 : (hd + kChunkChannels - 1) / kChunkChannels;
 }
 
 // rows a warp may own: 32 accumulators a thread, but 8 at 8 channels a
@@ -562,12 +573,13 @@ __device__ __forceinline__ int chan(int lane, int k) {
   return CPL == 1 ? lane : 2 * lane + (k & 1) + 64 * (k >> 1);
 }
 
-// kTile tokens' rows of one kv head from a decoded side (K or V) of the
-// pass, widened to float32; tokens at or past T and channels at or past hd
-// read as 0.  Pairs of channels come in one 32-bit load where hd is even.
+// kTile tokens' rows of n channels from `off` of a decoded side (K or V) of
+// the pass, widened to float32; tokens at or past T and channels at or past
+// n read as 0.  Pairs of channels come in one 32-bit load where hd is even.
 template <int CPL>
 __device__ __forceinline__ void load_tile(const unsigned short* side, float (&r)[kTile][CPL],
-                                          int t0, int T, int off, int rowlen, int hd, int lane) {
+                                          int t0, int T, int off, int rowlen, int n, int hd,
+                                          int lane) {
   const bool pairs = CPL > 1 && (hd & 1) == 0;
 #pragma unroll
   for (int t = 0; t < kTile; ++t) {
@@ -577,7 +589,7 @@ __device__ __forceinline__ void load_tile(const unsigned short* side, float (&r)
 #pragma unroll
       for (int k = 0; k < CPL; k += 2) {
         const int c = chan<CPL>(lane, k);
-        const unsigned w = tt < T && c < hd ? *reinterpret_cast<const unsigned*>(src + c) : 0u;
+        const unsigned w = tt < T && c < n ? *reinterpret_cast<const unsigned*>(src + c) : 0u;
         r[t][k] = __uint_as_float(w << 16);
         r[t][k + 1] = __uint_as_float(w & 0xFFFF0000u);
       }
@@ -585,7 +597,7 @@ __device__ __forceinline__ void load_tile(const unsigned short* side, float (&r)
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
         const int c = chan<CPL>(lane, k);
-        r[t][k] = tt < T && c < hd ? bf16_word(src[c]) : 0.f;
+        r[t][k] = tt < T && c < n ? bf16_word(src[c]) : 0.f;
       }
     }
   }
@@ -608,46 +620,50 @@ __device__ __forceinline__ float warp_sum8(const float (&v)[kTile], int lane) {
   return z;
 }
 
-// Scores and the online softmax of NR consecutive rows (from rl, of the
-// block's chunk) of one kv head against its K tile: each row's 8 dot
-// products, reduced across lanes (lane bits 4..2 pick the token t), the
-// tile's max, p = exp(s - m) (0 where s <= -1e29), and the updates of m, l,
-// alpha and the tile's p in shared memory.  The rows' chains are
+// part[t] += q . K[t] over the n channels of a tile, for q row qr (its
+// first channel matching the tile's); hd even lets a lane take its channel
+// pairs in one 8-byte load.
+template <int CPL>
+__device__ __forceinline__ void tile_dots(const float* qr, const float (&tile)[kTile][CPL], int n,
+                                          int hd, int lane, float (&part)[kTile]) {
+  float q[CPL];
+  if (CPL > 1 && (hd & 1) == 0) {
+#pragma unroll
+    for (int k = 0; k < CPL; k += 2) {
+      const int c = chan<CPL>(lane, k);
+      const float2 v = c < n ? *reinterpret_cast<const float2*>(qr + c) : make_float2(0.f, 0.f);
+      q[k] = v.x;
+      q[k + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int c = chan<CPL>(lane, k);
+      q[k] = c < n ? qr[c] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kTile; ++t) {
+    float d = part[t];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) d = fmaf(q[k], tile[t][k], d);
+    part[t] = d;
+  }
+}
+
+// The online softmax of NR consecutive rows (from rl, of the block's chunk)
+// given each row's dot product for the token t of this lane (lane bits 4..2):
+// the tile's max, p = exp(s - m) (0 where s <= -1e29), and the updates of m,
+// l, alpha and the tile's p in shared memory.  The rows' chains are
 // independent, so a warp has NR of them in flight.
-template <int CPL, int NR>
-__device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile)[kTile][CPL],
-                                           int rl, int t0, int T, int hd, float scale, int lane) {
+template <int NR>
+__device__ __forceinline__ void online_softmax(const AttnSmem& s, const float (&dot)[NR], int rl,
+                                               int t0, int T, float scale, int lane) {
   const int tl = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
   float sc[NR], mx[NR];
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
-    const float* qr = s.q + (rl + j) * hd;
-    float q[CPL];
-    if (CPL > 1 && (hd & 1) == 0) {
-#pragma unroll
-      for (int k = 0; k < CPL; k += 2) {
-        const int c = chan<CPL>(lane, k);
-        const float2 v = c < hd ? *reinterpret_cast<const float2*>(qr + c) : make_float2(0.f, 0.f);
-        q[k] = v.x;
-        q[k + 1] = v.y;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        const int c = chan<CPL>(lane, k);
-        q[k] = c < hd ? qr[c] : 0.f;
-      }
-    }
-    float part[kTile];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      float d = 0.f;
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) d = fmaf(q[k], tile[t][k], d);
-      part[t] = d;
-    }
-    const float dot = warp_sum8(part, lane);  // every lane: its shuffles are full-warp
-    sc[j] = t0 + tl < T ? dot * scale : kMasked;
+    sc[j] = t0 + tl < T ? dot[j] * scale : kMasked;
     mx[j] = sc[j];
   }
 #pragma unroll
@@ -679,6 +695,40 @@ __device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile
   }
 }
 
+// Scores and the online softmax of NR consecutive rows of one kv head
+// against its K tile: each row's 8 dot products, reduced across lanes by
+// warp_sum8 (every lane: its shuffles are full-warp).
+template <int CPL, int NR>
+__device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile)[kTile][CPL],
+                                           int rl, int t0, int T, int hd, float scale, int lane) {
+  float dot[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    float part[kTile] = {};
+    tile_dots<CPL>(s.q + (rl + j) * hd, tile, hd, hd, lane, part);
+    dot[j] = warp_sum8(part, lane);
+  }
+  online_softmax<NR>(s, dot, rl, t0, T, scale, lane);
+}
+
+// The same for one row of a head wider than a channel chunk: the K tile of
+// kv head kv comes 256 channels at a time, and the partial dots of the
+// blocks are summed before the reduction, so every channel chunk scores
+// the whole head.
+__device__ __forceinline__ void score_row_wide(const AttnSmem& s, const unsigned short* kside,
+                                               int rl, int kv, int t0, int T, int hd, int rowlen,
+                                               float scale, int lane) {
+  float part[kTile] = {};
+  for (int c0 = 0; c0 < hd; c0 += kChunkChannels) {
+    float tile[kTile][kMaxCpl];
+    const int n = min(kChunkChannels, hd - c0);
+    load_tile<kMaxCpl>(kside, tile, t0, T, kv * hd + c0, rowlen, n, hd, lane);
+    tile_dots<kMaxCpl>(s.q + rl * hd + c0, tile, n, hd, lane, part);
+  }
+  const float dot[1] = {warp_sum8(part, lane)};
+  online_softmax<1>(s, dot, rl, t0, T, scale, lane);
+}
+
 // acc = acc * alpha + p . V for one row against the kv head's V tile.
 template <int CPL>
 __device__ __forceinline__ void update_row(const AttnSmem& s, const float (&tile)[kTile][CPL],
@@ -696,7 +746,8 @@ __device__ __forceinline__ void update_row(const AttnSmem& s, const float (&tile
   }
 }
 
-template <int CPL>
+// WIDE: a head past 256 channels (CPL 8), split into channel chunks.
+template <int CPL, bool WIDE>
 __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   constexpr int RPW = rows_per_warp(CPL);
   extern __shared__ int smem[];
@@ -704,7 +755,11 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, split = blockIdx.x;
   const int kg = a.n_kv * a.groups, hd = a.hd, rowlen = a.n_kv * hd;
-  const int r0 = blockIdx.z * chunk_rows(kg, hd);  // first row of this chunk
+  // row chunk and channel chunk; the channels [c0, c0 + hc) this block owns
+  const int n_cc = WIDE ? chan_chunks(hd) : 1;
+  const int rz = WIDE ? blockIdx.z / n_cc : blockIdx.z, cc = WIDE ? blockIdx.z - rz * n_cc : 0;
+  const int c0 = cc * kChunkChannels, hc = WIDE ? min(kChunkChannels, hd - c0) : hd;
+  const int r0 = rz * chunk_rows(kg, hd);  // first row of this chunk
   const int R = min(chunk_rows(kg, hd), kg - r0);
   const int rpw = (R + kAttnWarps - 1) / kAttnWarps;
   const int wr0 = warp * rpw;  // this warp's first row in the chunk
@@ -736,13 +791,18 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
       float tile[kTile][CPL];
       for (int lo = 0, kv = kv_first, g0 = g_first; lo < n_rows; lo += a.groups - g0, ++kv, g0 = 0) {
         const int hi = min(n_rows, lo + a.groups - g0);
-        load_tile<CPL>(kside, tile, t0, T, kv * hd, rowlen, hd, lane);
-        int i = lo;
-        if constexpr (CPL < kMaxCpl)  // at 8 channels a lane the tile leaves no room
-          for (; i + 1 < hi; i += 2) score_rows<CPL, 2>(s, tile, wr0 + i, t0, T, hd, scale, lane);
-        for (; i < hi; ++i) score_rows<CPL, 1>(s, tile, wr0 + i, t0, T, hd, scale, lane);
+        if constexpr (WIDE) {
+          for (int i = lo; i < hi; ++i)
+            score_row_wide(s, kside, wr0 + i, kv, t0, T, hd, rowlen, scale, lane);
+        } else {
+          load_tile<CPL>(kside, tile, t0, T, kv * hd, rowlen, hd, hd, lane);
+          int i = lo;
+          if constexpr (CPL < kMaxCpl)  // at 8 channels a lane the tile leaves no room
+            for (; i + 1 < hi; i += 2) score_rows<CPL, 2>(s, tile, wr0 + i, t0, T, hd, scale, lane);
+          for (; i < hi; ++i) score_rows<CPL, 1>(s, tile, wr0 + i, t0, T, hd, scale, lane);
+        }
         __syncwarp();
-        load_tile<CPL>(vside, tile, t0, T, kv * hd, rowlen, hd, lane);
+        load_tile<CPL>(vside, tile, t0, T, kv * hd + c0, rowlen, hc, hd, lane);
 #pragma unroll
         for (int r = 0; r < RPW; ++r)
           if (r >= lo && r < hi) update_row<CPL>(s, tile, acc[r], wr0 + r);
@@ -756,18 +816,19 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     if (i < n_rows) {
-      float* dst = a.part_acc + (part * kg + r0 + wr0 + i) * hd;
+      float* dst = a.part_acc + (part * kg + r0 + wr0 + i) * hd + c0;
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
         const int c = chan<CPL>(lane, k);
-        if (c < hd) dst[c] = acc[i][k];
+        if (c < hc) dst[c] = acc[i][k];
       }
     }
   }
-  for (int j = tid; j < R; j += blockDim.x) {
-    a.part_m[part * kg + r0 + j] = s.m[j];
-    a.part_l[part * kg + r0 + j] = s.l[j];
-  }
+  if (cc == 0)
+    for (int j = tid; j < R; j += blockDim.x) {
+      a.part_m[part * kg + r0 + j] = s.m[j];
+      a.part_l[part * kg + r0 + j] = s.l[j];
+    }
 }
 
 // The batched pass decode alone, for holding it bit for bit against the
@@ -874,16 +935,17 @@ size_t smem_of(const int* ip) {
 using Kernel = void (*)(AttnArgs);
 
 Kernel attn_kernel_for(int hd) {
+  if (hd < 1) return nullptr;
   switch (cpl_of(hd)) {
-    case 1: return attn_kernel<1>;
-    case 2: return attn_kernel<2>;
-    case 4: return attn_kernel<4>;
-    case 8: return attn_kernel<8>;
-    default: return nullptr;
+    case 1: return attn_kernel<1, false>;
+    case 2: return attn_kernel<2, false>;
+    case 4: return attn_kernel<4, false>;
+    case 8: return attn_kernel<8, false>;
+    default: return attn_kernel<kMaxCpl, true>;
   }
 }
 
-// 0, or -1 (no fit in shared memory), -2 (head_dim past 256), -3 (not
+// 0, or -1 (no fit in shared memory), -2 (head_dim below 1), -3 (not
 // 16-bit words), -4 (pass size outside 1..8)
 int check(const AttnArgs& a, size_t smem) {
   if (smem > static_cast<size_t>(kSmemLimit)) return -1;
@@ -893,9 +955,10 @@ int check(const AttnArgs& a, size_t smem) {
   return 0;
 }
 
-int row_chunks(const AttnArgs& a) {
+// blocks on grid axis z: row chunks x channel chunks
+int z_chunks(const AttnArgs& a) {
   const int kg = a.n_kv * a.groups, R = chunk_rows(kg, a.hd);
-  return R ? (kg + R - 1) / R : 1;
+  return (R ? (kg + R - 1) / R : 1) * chan_chunks(a.hd);
 }
 
 }  // namespace
@@ -933,7 +996,7 @@ extern "C" int gbdi_paged_attn_launch(const long long* ptr, const int* ip, void*
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  k<<<dim3(a.splits, a.B, row_chunks(a)), kAttnThreads, smem, st>>>(a);
+  k<<<dim3(a.splits, a.B, z_chunks(a)), kAttnThreads, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   merge_kernel<<<a.B * a.n_kv * a.groups, kMergeThreads, 0, st>>>(a);

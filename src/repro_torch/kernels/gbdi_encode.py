@@ -11,7 +11,8 @@ launch in :data:`launch_count`; for a tensor on the CPU it runs the plain
 version (there is no kernel there), and for any other device it raises.
 The shared-memory budget check (:func:`check_smem`) stands where the
 reference's VMEM check stood: a config whose page does not fit one block's
-227 KB raises, with no fallback.
+227 KB raises, with no fallback, and so does a page past the
+:data:`MAX_PAGE_WORDS` whose words the block's threads hold in registers.
 """
 from __future__ import annotations
 
@@ -27,6 +28,10 @@ SMEM_LIMIT_BYTES = 232448
 MISC_INTS = 16
 #: classes a width set can hold: subsets of (1, 2, 4, 8, 16)
 MAX_CLASSES = 5
+#: the encode block's threads, and the most page words a thread holds
+#: (``kThreads``, ``kMaxWords``): pages up to 16,640 words
+ENCODE_THREADS = 256
+MAX_PAGE_WORDS = ENCODE_THREADS * 65
 
 #: kernel launches made by :func:`gbdi_encode` (CUDA tensors only)
 launch_count = 0
@@ -50,14 +55,23 @@ def pad_table(table: BaseTable, cfg: FRConfig) -> tuple[torch.Tensor, torch.Tens
 
 
 def smem_bytes(cfg: FRConfig) -> int:
-    """Dynamic shared memory of one encode block (mirrors ``enc_smem_bytes``)."""
-    P, chunks = cfg.page_words, cfg.page_words // 32
-    return 4 * (3 * P + 2 * chunks + 1 + cfg.delta_lanes + 2 * k_padded(cfg)
-                + MISC_INTS) + 2 * P
+    """Dynamic shared memory of one encode block (mirrors ``enc_smem_bytes``):
+    the table as (nb, lim) pairs, per-class entry masks of each 32-entry
+    block, chunk masks and prefix, the delta lanes, scalars."""
+    k = k_padded(cfg)
+    return 4 * (2 * k + MAX_CLASSES * -(-k // 32) + 2 * (cfg.page_words // 32) + 1
+                + cfg.delta_lanes + MISC_INTS)
 
 
 def check_smem(cfg: FRConfig, need: int | None = None) -> None:
-    need = smem_bytes(cfg) if need is None else need
+    """Raise unless a block fits: ``need`` bytes of shared memory (default:
+    the encode block's, whose page must also be at most MAX_PAGE_WORDS)."""
+    if need is None:
+        need = smem_bytes(cfg)
+        if cfg.page_words > MAX_PAGE_WORDS:
+            raise ValueError(
+                f"a {cfg.page_words}-word page is past the encode kernel's {MAX_PAGE_WORDS} "
+                f"words ({MAX_PAGE_WORDS // ENCODE_THREADS} a thread of a block); lower page_words")
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"a {cfg.page_words}-word page needs {need} B of shared memory per "
@@ -141,7 +155,7 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike, cfg: FRConfig) -> dict[
 
 
 __all__ = [
-    "SMEM_LIMIT_BYTES", "check_smem", "gbdi_encode",
+    "MAX_PAGE_WORDS", "SMEM_LIMIT_BYTES", "check_smem", "gbdi_encode",
     "gbdi_encode_plain", "k_padded", "kernel_iparams", "kernel_meta",
     "launch_count", "pad_table", "smem_bytes",
 ]

@@ -16,8 +16,8 @@ its layout, as in the decode kernel).
 :func:`paged_attention_decode` launches the kernel for tensors on a CUDA
 device and counts the launch in :data:`launch_count`; for tensors on the
 CPU it runs :func:`paged_attention_decode_plain`, and for any other device
-it raises.  Both paths first check the geometry (16-bit words, ``hd <=
-256``, ``page_words`` holding a whole number of ``Kv * hd`` rows) and the
+it raises.  Both paths first check the geometry (16-bit words,
+``page_words`` holding a whole number of ``Kv * hd`` rows) and the
 block's shared memory (:func:`check_smem`, where the reference's VMEM check
 stood), which also fixes the kernel's pass size: the page slots it decodes
 at once (:func:`pass_slots`).  :func:`decode_pages` exposes that batched
@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.format import TableLike, as_base_table
@@ -63,8 +63,8 @@ TILE_TOKENS = 8
 MAX_PASS_SLOTS = 8
 #: words of a page one warp of the pass decode takes at a time
 GROUP_WORDS = 128
-#: the widest head the kernel takes (8 channels per lane)
-MAX_HEAD_DIM = 256
+#: the channels of one channel chunk (8 a lane); wider heads take several
+CHUNK_CHANNELS = 256
 #: the waves of blocks the split search considers
 MAX_WAVES = 8
 
@@ -91,8 +91,15 @@ def chunk_rows(kg: int, hd: int) -> int:
     """(kv, group) rows one block holds (mirrors ``chunk_rows``): 16 warps of
     32 / channels-per-lane rows, 1 at 8 channels a lane; more rows go to
     further row chunks, each decoding the pages again."""
-    cpl = min(channels_per_lane(hd), MAX_HEAD_DIM // 32)
+    cpl = min(channels_per_lane(hd), CHUNK_CHANNELS // 32)
     return min(kg, ATTN_WARPS * (1 if cpl >= 8 else 32 // cpl))
+
+
+def channel_chunks(hd: int) -> int:
+    """Channel chunks of a head (mirrors ``chan_chunks``): 1 up to 256
+    channels, else one per 256; each chunk scores the whole head and
+    accumulates V over its own channels."""
+    return 1 if hd <= CHUNK_CHANNELS else -(-hd // CHUNK_CHANNELS)
 
 
 def _a16(n: int) -> int:
@@ -148,13 +155,21 @@ def check_smem(cfg: FRConfig, *, n_kv: int, hd: int, groups: int) -> int:
 
 def check_kernel_geometry(cfg: FRConfig, hd: int) -> None:
     """What the kernel takes beyond the shared-memory budget: bf16 pages
-    (16-bit words) and heads of at most 256 channels.  Both paths check it,
-    so the CPU's answer is the card's."""
+    (16-bit words).  Both paths check it, so the CPU's answer is the card's;
+    the head dim is bounded by the shared-memory check alone."""
     if cfg.word_bits != 16:
         raise ValueError(f"the paged-attention kernel reads 16-bit (bf16) KV pages, "
                          f"not word_bits={cfg.word_bits}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"the paged-attention kernel takes head_dim <= {MAX_HEAD_DIM}, not {hd}")
+
+
+def inv_sqrt(hd: int, device: torch.device | str) -> torch.Tensor:
+    """1/sqrt(hd) formed in float32, as the reference and the kernel form it
+    (``1.0f / sqrtf(hd)``, both IEEE-rounded), as a 0-dim float32 tensor.  A
+    double ``1 / math.sqrt(hd)`` rounded to float32 differs from it at many
+    head dims (96, 112, 384 among them), and so does torch's CPU ``sqrt`` of
+    a float32 scalar at hd 267; numpy's float32 ``sqrt`` is IEEE-rounded."""
+    scale = np.float32(1) / np.sqrt(np.float32(hd))
+    return torch.tensor(scale, dtype=torch.float32, device=device)
 
 
 def merge_softmax(
@@ -187,7 +202,7 @@ def paged_attention_decode_plain(
     B, S = pages_k["ptrs"].shape[:2]
     dev = q.device
     qf = q.reshape(B, n_kv, groups, hd).float()
-    scale = 1.0 / math.sqrt(hd)
+    scale = inv_sqrt(hd, dev)
     limit = (int(pos) // pt) * pt
     acc = torch.zeros(B, n_kv, groups, hd, dtype=torch.float32, device=dev)
     m = torch.full((B, n_kv, groups), MASKED, dtype=torch.float32, device=dev)
@@ -274,7 +289,7 @@ def _launch_plan(cfg: FRConfig, B: int, S: int, pos: int, dev: torch.device, *, 
     pt = page_tokens(cfg, n_kv, hd)
     if n_valid is None:
         n_valid = max(0, min(S, int(pos) // pt))
-    chunks = -(-(n_kv * groups) // chunk_rows(n_kv * groups, hd))
+    chunks = -(-(n_kv * groups) // chunk_rows(n_kv * groups, hd)) * channel_chunks(hd)
     splits, run = _splits(
         n_valid, B, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
         per_sm=_blocks_per_sm(cfg, n_kv, hd, groups, dev.index or 0), pass_n=pass_n,
@@ -394,7 +409,7 @@ def decode_pages(
 
 
 __all__ = [
-    "MASKED", "attn_iparams", "check_kernel_geometry", "check_smem", "chunk_rows",
-    "decode_pages", "launch_count", "merge_softmax", "page_tokens", "pass_slots",
+    "MASKED", "attn_iparams", "channel_chunks", "check_kernel_geometry", "check_smem", "chunk_rows",
+    "decode_pages", "inv_sqrt", "launch_count", "merge_softmax", "page_tokens", "pass_slots",
     "paged_attention_decode", "paged_attention_decode_plain", "smem_bytes",
 ]

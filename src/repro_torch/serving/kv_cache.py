@@ -50,6 +50,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.gbdi_paged_attn import (
     MASKED,
     MASKED_GUARD,
+    inv_sqrt,
     merge_softmax,
     paged_attention_decode,
 )
@@ -271,11 +272,6 @@ def read_full(spec: KVSpec, cache: Cache, pos: int) -> tuple[torch.Tensor, torch
     return K, V, valid
 
 
-def _inv_sqrt(hd: int, device: torch.device) -> torch.Tensor:
-    """1/sqrt(hd) in float32 arithmetic, as the reference forms it."""
-    return 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=device))
-
-
 def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
                      backend: str = "auto") -> torch.Tensor:
     """q: (B, 1, H, hd) -> (B, 1, H*hd) bf16 over the compressed cache.
@@ -298,7 +294,7 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
         B, S, Kv, hd = K.shape
         H = q.shape[2]
         qg = q.reshape(B, 1, Kv, H // Kv, hd).float()
-        logits = torch.einsum("bskgh,btkh->bkgst", qg, K.float()) * _inv_sqrt(hd, K.device)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg, K.float()) * inv_sqrt(hd, K.device)
         logits = torch.where(valid, logits, MASKED)
         probs = torch.softmax(logits, dim=-1).to(V.dtype)
         out = torch.einsum("bkgst,btkh->bskgh", probs.float(), V.float()).to(V.dtype)
@@ -315,7 +311,7 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
     pt = spec.page_tokens
     Kt, Vt = cache["k_tail"].float(), cache["v_tail"].float()
     tail_valid = (pos // pt) * pt + torch.arange(pt, device=qg.device) <= pos
-    lg = torch.einsum("bkgh,btkh->bkgt", qg, Kt) * _inv_sqrt(hd, qg.device)
+    lg = torch.einsum("bkgh,btkh->bkgt", qg, Kt) * inv_sqrt(hd, qg.device)
     lg = torch.where(tail_valid, lg, MASKED)
     m2 = lg.max(dim=-1).values
     p2 = torch.where(lg <= MASKED_GUARD, 0.0, torch.exp(lg - m2[..., None]))

@@ -79,16 +79,25 @@ def test_pad_table_matches_reference(ref, num_bases):
 
 def test_smem_budget_check():
     """The shared-memory check stands where the VMEM check stood: default
-    pages fit one block, a page past 227 KB raises (no fallback)."""
+    pages fit one block, a decode page past 227 KB raises (no fallback),
+    and so does an encode page past the words its block's registers hold.
+    The encode keeps its words' state in registers, so its block needs far
+    less shared memory than the decode's."""
     for kw in (DEFAULT16, DEFAULT32, ADAPTIVE):
         cfg = tfr.FRConfig(**kw)
         t_enc.check_smem(cfg)
         t_enc.check_smem(cfg, t_dec.smem_bytes(cfg))
-        assert t_dec.smem_bytes(cfg) < t_enc.smem_bytes(cfg) <= t_enc.SMEM_LIMIT_BYTES
+        assert t_enc.smem_bytes(cfg) < t_dec.smem_bytes(cfg) <= t_enc.SMEM_LIMIT_BYTES
+    assert t_enc.smem_bytes(tfr.FRConfig(**DEFAULT16)) == 2680
     big = tfr.FRConfig(word_bits=16, page_words=32768, width_set=(4, 8),
                        bucket_caps=(4096, 28672), outlier_cap=64)
     with pytest.raises(ValueError, match="shared memory"):
+        t_enc.check_smem(big, t_dec.smem_bytes(big))
+    with pytest.raises(ValueError, match="lower page_words"):
         t_enc.check_smem(big)
+    edge = tfr.FRConfig(word_bits=16, page_words=t_enc.MAX_PAGE_WORDS, width_set=(4, 8),
+                        bucket_caps=(256, 2048), outlier_cap=64)
+    t_enc.check_smem(edge)
 
 
 @pytest.mark.parametrize("kw", [SMALL, ADAPTIVE, WIDE], ids=["small", "adaptive", "wide"])
@@ -182,16 +191,87 @@ def _spill_pages(n_pages):
 
 # single-width v1 config with 30 bases (8-bit pointers)
 V1_K30 = dict(word_bits=32, page_words=2048, delta_bits=8, num_bases=30, outlier_cap=128)
+# 30 bases in 4 clusters, so several bases of a class fit one word (first
+# index wins); a third of the entries carry a width outside the set (dead);
+# clusters at both ends of the word range, so deltas wrap; caps below the
+# page, so words spill to the wide class and overflow to outliers
+TIES32 = dict(word_bits=32, page_words=2048, num_bases=30, width_set=(8, 16),
+              bucket_caps=(256, 1536), outlier_cap=64)
+TIES16 = dict(word_bits=16, page_words=2048, num_bases=30, width_set=(4, 8),
+              bucket_caps=(256, 1536), outlier_cap=64)
+# every width class (the encode's three-register build of the fits)
+FIVE = dict(word_bits=32, page_words=1024, num_bases=10, width_set=(1, 2, 4, 8, 16),
+            bucket_caps=(32, 32, 64, 128, 512), outlier_cap=32)
+
+
+def ladder_pages(cfg, n_pages, seed):
+    """(x, bases, widths): two centers, each with one base per width class,
+    and words whose deltas spread evenly over the classes' spans, so every
+    class has demand and caps below it spill words down the whole chain."""
+    rng = np.random.default_rng(seed)
+    span = 1 << cfg.word_bits
+    centers = rng.integers(0, span, 2)
+    bases = np.repeat(centers, cfg.num_classes)
+    widths = np.tile(np.array(cfg.width_set), 2)
+    halves = np.array([1 << (w - 1) for w in cfg.width_set])
+    h = halves[rng.integers(0, cfg.num_classes, (n_pages, cfg.page_words))]
+    w = centers[rng.integers(0, 2, h.shape)] + rng.integers(-h, h)
+    w[:, ::13] = 0
+    w[:, 5::31] = rng.integers(0, span, w[:, 5::31].shape)   # outliers
+    to32 = lambda v: (v % span).astype(np.uint32).view(np.int32)  # noqa: E731
+    return to32(w), to32(bases), widths.astype(np.int32)
+
+
+def tie_pages(cfg, n_pages, seed):
+    """(x int32 pages, bases, widths) of the tie / dead-entry / wrap set."""
+    rng = np.random.default_rng(seed)
+    bits = cfg.word_bits
+    span = 1 << bits
+    centers = np.array([span // 2 - 40, span // 2 + 20, span // 3, span - 60], np.int64)
+    bases = centers[rng.integers(0, 4, cfg.num_bases)] + rng.integers(-6, 7, cfg.num_bases)
+    bases[:4] = centers                          # every cluster has a base
+    widths = rng.choice([cfg.width_set[0], cfg.width_set[1], 2], cfg.num_bases)
+    widths[:4] = cfg.width_set[0]
+    near = rng.integers(-5, 6, (n_pages, cfg.page_words))
+    far = rng.integers(-100, 101, (n_pages, cfg.page_words))
+    w = centers[rng.integers(0, 4, (n_pages, cfg.page_words))]
+    w = w + np.where(rng.random((n_pages, cfg.page_words)) < 0.6, near, far)
+    w[:, ::11] = 0
+    w[:, 3::29] = rng.integers(0, span, w[:, 3::29].shape)   # scattered outliers
+    as_int32 = lambda v: (v % span).astype(np.int64).astype(np.uint32).view(np.int32)  # noqa: E731
+    if bits == 32:
+        return as_int32(w), as_int32(bases), widths.astype(np.int32)
+    return (w % span).astype(np.int32), (bases % span).astype(np.int32), widths.astype(np.int32)
+
+
+def test_tie_set_matches_reference(ref):
+    """The tie / dead-entry / wrap set: the plain encode equals the JAX
+    oracle bit for bit, and the set spills, drops and holds dead entries."""
+    jnp = ref.jnp
+    for kw in (TIES32, TIES16):
+        tc, jc = tfr.FRConfig(**kw), ref.fr.FRConfig(**kw)
+        x, bases, widths = tie_pages(tc, 6, 7)
+        assert (widths == 2).any()
+        blob = tfr.fr_encode(torch.from_numpy(x), interop.table_from_numpy(bases, widths, device="cpu"), tc)
+        jblob = ref.fr.fr_encode(jnp.asarray(x), ref.fr.BaseTable(jnp.asarray(bases), jnp.asarray(widths)), jc)
+        for k in jblob:
+            np.testing.assert_array_equal(blob[k].numpy(), np.asarray(jblob[k]), err_msg=k)
+        assert int(blob["n_spilled"].sum()) > 0 and int(blob["n_dropped"].sum()) > 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [SMALL, ADAPTIVE, WIDE, DEFAULT16, DEFAULT32, V1_K30, SPILL,
-                                "foreign"],
+                                "foreign", TIES32, TIES16, FIVE],
                          ids=["small", "adaptive", "wide", "default16", "default32", "v1-k30",
-                              "spill", "foreign-width"])
+                              "spill", "foreign-width", "ties-dead-wrap32", "ties-dead-wrap16",
+                              "five-classes"])
 def test_kernels_match_plain_on_card(cuda_device, kw):
     cfg = tfr.FRConfig(**(SMALL if kw == "foreign" else kw))
-    if kw is SPILL:
+    if kw is TIES32 or kw is TIES16 or kw is FIVE:
+        x, bases, widths = (ladder_pages if kw is FIVE else tie_pages)(cfg, 64, 7)
+        x = torch.from_numpy(x).to(cuda_device)
+        table = interop.table_from_numpy(bases, widths, device=cuda_device)
+    elif kw is SPILL:
         x = torch.from_numpy(_spill_pages(64)).to(cuda_device)
         table = interop.table_from_numpy([1000, 1000, 20000], [4, 8, 8], device=cuda_device)
     else:
@@ -208,7 +288,7 @@ def test_kernels_match_plain_on_card(cuda_device, kw):
     assert set(blob) == set(plain)
     for k in blob:
         assert torch.equal(blob[k], plain[k]), k
-    if kw is SPILL:
+    if kw is SPILL or kw is TIES32 or kw is TIES16 or kw is FIVE:
         assert int(plain["n_spilled"].sum()) > 0 and int(plain["n_dropped"].sum()) > 0
     dec = t_dec.gbdi_decode(blob, table, cfg)
     torch.cuda.synchronize()
@@ -216,10 +296,27 @@ def test_kernels_match_plain_on_card(cuda_device, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("page_words", [384, 1024, 4096, 8192, 16640])
+def test_encode_page_sizes_on_card(cuda_device, page_words):
+    """Every build of the encode by words a thread (2, 4, 16, 32 and the
+    largest, 65): a few pages against the plain version, bit for bit."""
+    cfg = tfr.FRConfig(word_bits=16, page_words=page_words, num_bases=4, width_set=(4, 8),
+                       bucket_caps=(page_words // 8, page_words // 2), outlier_cap=32)
+    x, bases, widths = ladder_pages(cfg, 3, page_words)
+    x = torch.from_numpy(x).to(cuda_device)
+    table = interop.table_from_numpy(bases, widths, device=cuda_device)
+    blob = t_enc.gbdi_encode(x, table, cfg)
+    plain = t_enc.gbdi_encode_plain(x, table, cfg)
+    for k in plain:
+        assert torch.equal(blob[k], plain[k]), k
+    assert int(plain["n_spilled"].sum()) > 0 and int(plain["n_dropped"].sum()) > 0
+
+
+@pytest.mark.cuda
 def test_smem_formula_matches_kernel_source(cuda_device):
     from repro_torch.kernels import _build
 
-    for kw in (SMALL, ADAPTIVE, DEFAULT16, DEFAULT32):
+    for kw in (SMALL, ADAPTIVE, DEFAULT16, DEFAULT32, TIES32):
         cfg = tfr.FRConfig(**kw)
         ip = _build.int_array(t_enc.kernel_iparams(cfg, 1))
         assert _build.load("gbdi_encode").gbdi_encode_smem_bytes(ip) == t_enc.smem_bytes(cfg)

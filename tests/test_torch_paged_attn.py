@@ -26,14 +26,22 @@ FR48 = dict(word_bits=16, page_words=256, num_bases=14, width_set=(4, 8),
 # a page with at most 128 wide-class words takes the smaller second profile
 ADAPTIVE = dict(word_bits=16, page_words=256, num_bases=14, width_set=(4, 8),
                 cap_profiles=((32, 256), (32, 128)), outlier_cap=16)
-# (fr, n_kv, hd, groups, slots): page_tokens = 256 // (n_kv * hd)
+# heads whose float32 scale 1/sqrtf(hd) differs from a double 1/sqrt(hd)
+# rounded to float32 (hd 96), and wider than one 256-channel chunk (hd 512)
+HD96 = dict(word_bits=16, page_words=384, num_bases=14, width_set=(8,),
+            bucket_caps=(384,), outlier_cap=16)
+HD512 = dict(word_bits=16, page_words=2048, num_bases=14, width_set=(8,),
+             bucket_caps=(2048,), outlier_cap=64)
+# (fr, n_kv, hd, groups, slots): page_tokens = page_words // (n_kv * hd)
 GEOMS = [
     (FR8, 2, 64, 2, 5),     # pt 2
     (FR48, 1, 64, 4, 4),    # pt 4
     (FR8, 2, 128, 3, 6),    # pt 1
     (FR48, 4, 16, 2, 3),    # pt 4, narrow heads
+    (HD96, 1, 96, 2, 5),    # pt 4
+    (HD512, 1, 512, 2, 3),  # pt 4, two channel chunks
 ]
-GEOM_IDS = ["pt2", "pt4-multiwidth", "pt1", "pt4-hd16"]
+GEOM_IDS = ["pt2", "pt4-multiwidth", "pt1", "pt4-hd16", "hd96", "hd512"]
 LLAMA405B = dict(n_kv=8, hd=128, groups=16)   # the serving path's attention layer
 
 
@@ -135,6 +143,33 @@ def test_plain_matches_pallas_interpret(ref, geom):
         assert_state_close(got, want)
         if pos < d.pt:     # every page masked
             assert (got[1] == t_pa.MASKED).all() and (got[2] == 0).all() and (got[0] == 0).all()
+
+
+def test_plain_scale_is_float32_inv_sqrt():
+    """The plain path scales its scores by 1/sqrt(hd) formed in float32, as
+    the reference and the kernel do: with one key of 1.0 on channel 0 and a
+    query of 1.0 there, the running max m is that scale, bit for bit, for
+    every head dim 1..512 (a double 1/sqrt rounded to float32 misses at 151
+    of them)."""
+    for hd in range(1, 513):
+        want = np.float32(1) / np.sqrt(np.float32(hd))
+        pw = int(np.lcm(hd, 128))
+        cfg = tfr.FRConfig(word_bits=16, page_words=pw, num_bases=1, width_set=(8,),
+                           bucket_caps=(pw,), outlier_cap=8)
+        words = torch.zeros(1, pw, dtype=torch.int32)
+        words[0, 0] = 0x3F80                                  # bf16 1.0, token 0 channel 0
+        table = interop.table_from_numpy([0x3F80], [8], device="cpu")
+        blob = {k: v[None] for k, v in tfr.fr_encode(words, table, cfg).items()}
+        q = torch.zeros(1, 1, 1, hd)
+        q[..., 0] = 1.0
+        pt = pw // hd
+        _, m, l = t_pa.paged_attention_decode_plain(q, blob, blob, table, pt, cfg,
+                                                    n_kv=1, hd=hd, groups=1)
+        assert m.numpy().reshape(()).tobytes() == want.tobytes(), hd
+        assert float(l) >= 1.0
+    for hd in range(1, 513):    # the helper the kernel-side paths share
+        want = np.float32(1) / np.sqrt(np.float32(hd))
+        assert t_pa.inv_sqrt(hd, "cpu").numpy().tobytes() == want.tobytes(), hd
 
 
 def test_wrapper_on_cpu_runs_the_plain_version(ref):
@@ -297,22 +332,36 @@ def test_splits_fill_whole_waves():
 
 @pytest.mark.parametrize("bad", ["word_bits=32", "hd=512"])
 def test_wrapper_raises_outside_kernel_geometry(bad):
-    """The kernel reads only bf16 pages of heads up to 256 channels; both
-    paths refuse the rest, so the CPU answers as the card would."""
+    """The kernel reads only bf16 pages, and both paths refuse the rest, so
+    the CPU answers as the card would; a head wider than 256 channels is
+    inside the geometry (the kernel splits it into channel chunks), and both
+    entry points take it on the CPU as the plain version."""
     if bad == "word_bits=32":
         cfg = tfr.FRConfig(word_bits=32, page_words=256, num_bases=14, width_set=(8, 16),
                            bucket_caps=(64, 192), outlier_cap=16)
-        n_kv, hd, match = 2, 64, "16-bit"
-    else:
-        cfg = tfr.FRConfig(word_bits=16, page_words=1024, num_bases=14, width_set=(8,),
-                           bucket_caps=(1024,), outlier_cap=16)
-        n_kv, hd, match = 1, 512, "head_dim"
-    pages = {"ptrs": torch.zeros(B, 2, 1, dtype=torch.int32)}
-    q = torch.zeros(B, n_kv, 1, hd)
-    with pytest.raises(ValueError, match=match):
-        t_pa.paged_attention_decode(q, pages, pages, [0], 3, cfg, n_kv=n_kv, hd=hd, groups=1)
-    with pytest.raises(ValueError, match=match):
-        t_pa.decode_pages(pages, pages, [0], 1, cfg, n_kv=n_kv, hd=hd, groups=1)
+        n_kv, hd = 2, 64
+        pages = {"ptrs": torch.zeros(B, 2, 1, dtype=torch.int32)}
+        q = torch.zeros(B, n_kv, 1, hd)
+        with pytest.raises(ValueError, match="16-bit"):
+            t_pa.paged_attention_decode(q, pages, pages, [0], 3, cfg, n_kv=n_kv, hd=hd, groups=1)
+        with pytest.raises(ValueError, match="16-bit"):
+            t_pa.decode_pages(pages, pages, [0], 1, cfg, n_kv=n_kv, hd=hd, groups=1)
+        return
+    cfg = tfr.FRConfig(word_bits=16, page_words=1024, num_bases=14, width_set=(8,),
+                       bucket_caps=(1024,), outlier_cap=16)
+    n_kv, hd, groups, slots = 1, 512, 2, 3
+    assert t_pa.channel_chunks(hd) == 2 and t_pa.check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups) >= 1
+    pk, pv, table, pt = _card_pages(cfg, n_kv, hd, slots, torch.device("cpu"), seed=4)
+    q = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (B, n_kv, groups, hd)).astype(np.float32))
+    pos = slots * pt - 1
+    got = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, n_kv=n_kv, hd=hd, groups=groups)
+    want = t_pa.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, n_kv=n_kv, hd=hd,
+                                             groups=groups)
+    assert got[0].shape == (B, n_kv, groups, hd) and bool(got[2].gt(0).all())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    k, v = t_pa.decode_pages(pk, pv, table, slots, cfg, n_kv=n_kv, hd=hd, groups=groups)
+    assert k.shape == v.shape == (B, slots, cfg.page_words)
 
 
 def test_decode_pages_on_cpu_is_fr_decode():
@@ -358,18 +407,21 @@ def _single_width(page_words):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["pt2", "pt4", "pt1", "adaptive", "llama405b",
-                                  "hd256", "hd32", "hd80", "hd33"])
+                                  "hd256", "hd32", "hd80", "hd33", "hd512", "hd384"])
 def test_kernel_matches_plain_on_card(cuda_device, case):
     """Every channels-per-lane build of the kernel (hd 32, 64, 80 and 128,
-    256), the odd-hd path (no channel pairs) and a page of 32 tokens."""
+    256), the odd-hd path (no channel pairs), a page of 32 tokens, and heads
+    split into two channel chunks (hd 512, and hd 384 with a half chunk)."""
     cfg = tfr.FRConfig(**{"adaptive": ADAPTIVE, "pt4": FR48, "llama405b": KV_FR,
                           "hd256": KV_FR, "hd80": _single_width(640),
-                          "hd33": _single_width(4224)}.get(case, FR8))
+                          "hd33": _single_width(4224), "hd512": KV_FR,
+                          "hd384": _single_width(1536)}.get(case, FR8))
     n_kv, hd, groups, slots = {"pt2": (2, 64, 2, 37), "pt4": (1, 64, 4, 40),
                                "pt1": (2, 128, 3, 50), "adaptive": (2, 64, 2, 33),
                                "llama405b": (8, 128, 16, 64), "hd256": (4, 256, 4, 21),
                                "hd32": (2, 32, 8, 30), "hd80": (1, 80, 3, 25),
-                               "hd33": (1, 33, 2, 6)}[case]
+                               "hd33": (1, 33, 2, 6), "hd512": (1, 512, 8, 27),
+                               "hd384": (1, 384, 3, 19)}[case]
     pk, pv, table, pt = _card_pages(cfg, n_kv, hd, slots, cuda_device, seed=slots)
     q = torch.randn(B, n_kv, groups, hd, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0))
@@ -393,7 +445,8 @@ def test_smem_formula_matches_kernel_source(cuda_device):
     lib = t_pa._lib()
     for kw, geom in ((FR8, dict(n_kv=2, hd=64, groups=2)), (ADAPTIVE, dict(n_kv=1, hd=64, groups=4)),
                      (KV_FR, LLAMA405B), (KV_FR, dict(n_kv=8, hd=128, groups=32)),
-                     (ADAPTIVE_2048, dict(n_kv=8, hd=128, groups=4))):
+                     (ADAPTIVE_2048, dict(n_kv=8, hd=128, groups=4)),
+                     (KV_FR, dict(n_kv=1, hd=512, groups=8))):
         cfg = tfr.FRConfig(**kw)
         for n in range(1, t_pa.MAX_PASS_SLOTS + 1):
             ip = _build.int_array(t_pa.attn_iparams(cfg, **geom, pass_n=n))
