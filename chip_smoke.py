@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero before the final line:
    for bit: every page of the two codec streams (in chunks), an adaptive
    multi-profile config, a forced spill/drop page set, a set of 30-base
    tables with ties, dead entries and wrapping deltas (16- and 32-bit
-   words), and the golden-CRC pages of the format's serialization;
+   words), the golden-CRC pages of the format's serialization, and (decode
+   only) blobs the encoder never writes, per word width;
 3. the codec path through ``repro_torch.eval.run.evaluate_cell`` at 256 MiB
    per stream: ``ml_kvcache_bf16`` (16-bit config) and ``605.mcf_s`` (32-bit
    config), fit -> encode -> decode -> verify (mismatched words <= dropped),
@@ -78,6 +79,42 @@ SEED = 12
 
 def log(*args: object) -> None:
     print(*args, flush=True)
+
+
+def handmade_blobs(cfg, n_pages: int, seed: int):
+    """(blob, bases, widths) as numpy int32 arrays of blobs the encoder never
+    writes: random ptr and delta lanes, every code 0 (the first base, class
+    0) on a quarter of the pages, full-int32 outlier values, outlier indices
+    strictly rising in the page, rising through negative and off-page
+    values, random (repeating, falling) or all one index, n_out from -3 to
+    cap + 3, profile ids from -1 to num_profiles, and table entries of a
+    width outside the width set."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    P, cap, nb = cfg.page_words, cfg.outlier_cap, cfg.num_bases
+
+    def u32(*shape):
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+
+    bases = rng.integers(0, 1 << 16, nb).astype(np.int32) if cfg.word_bits == 16 else u32(nb)
+    widths = rng.choice(list(cfg.width_set) + [3], nb).astype(np.int32)
+    widths[0] = cfg.width_set[0]
+    ptrs = u32(n_pages, cfg.ptr_lanes)
+    ptrs[::4] = 0
+    q = n_pages // 4
+    idx = np.concatenate([
+        np.sort(rng.random((q, P)).argsort(axis=1)[:, :cap], axis=1),
+        np.sort(rng.random((q, P + 16)).argsort(axis=1)[:, :cap], axis=1) - 8,
+        rng.integers(-8, P + 8, (q, cap)),
+        np.repeat(rng.integers(0, P, (n_pages - 3 * q, 1)), cap, axis=1),
+    ])
+    blob = {"ptrs": ptrs, "deltas": u32(n_pages, cfg.delta_lanes), "out_vals": u32(n_pages, cap),
+            "out_idx": idx[rng.permutation(n_pages)].astype(np.int32),
+            "n_out": rng.integers(-3, cap + 4, n_pages).astype(np.int32)}
+    if cfg.num_profiles > 1:
+        blob["profile"] = rng.integers(-1, cfg.num_profiles + 1, n_pages).astype(np.int32)
+    return blob, bases, widths
 
 
 def main() -> int:
@@ -249,6 +286,28 @@ def main() -> int:
         raise AssertionError(f"golden CRCs {crcs} != {GOLDEN_CRCS}")
     compare("golden-crc", x, gtable, golden)
     log(f"[2] golden CRCs matched: {crcs}")
+
+    # blobs the encoder never writes, per word width: random ptr and delta
+    # lanes (codes past the outlier code, class counts past their caps),
+    # full-int32 outlier values, outlier indices that rise, repeat, fall or
+    # lie off the page, n_out past both ends, profile ids outside the table;
+    # the decode kernel against its plain version, bit for bit
+    hand16 = FRConfig(word_bits=16, page_words=2048, num_bases=14, width_set=(4, 8),
+                      cap_profiles=((192, 1856), (64, 1024), (8, 8)), outlier_cap=64)
+    for hcfg in (hand16, default_config(32)):
+        blob, hbases, hwidths = handmade_blobs(hcfg, 4096, hcfg.word_bits)
+        blob = interop.blob_from_numpy(blob, device=dev)
+        htable = interop.table_from_numpy(hbases, hwidths, device=dev)
+        box = {}
+        pms = event_ms(lambda: box.setdefault("p", dec_mod.gbdi_decode_plain(blob, htable, hcfg)))
+        d = max_err(dec_mod.gbdi_decode(blob, htable, hcfg), box["p"])
+        sync()
+        err["gbdi_decode"] = max(err["gbdi_decode"], d)
+        if d:
+            raise AssertionError(f"hand-built {hcfg.word_bits}-bit blobs: the decode kernel differs "
+                                 f"from plain (err {d})")
+        log(f"[2] hand-built {hcfg.word_bits}-bit blobs ({hcfg.num_profiles} profile(s)): "
+            f"4096 pages decoded bit-identical to plain; plain decode {pms:.3f} ms")
 
     # -- phase 3: the main path, counted -------------------------------------
     enc_mod.launch_count = 0

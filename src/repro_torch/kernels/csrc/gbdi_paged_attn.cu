@@ -38,12 +38,12 @@
 //    field (mod 2^16), 8 bytes a lane.  Live outlier slots go last, each
 //    writing its own value where the indices rise strictly (as the encoder
 //    writes them), else the sum of its index's live values.  Four block
-//    barriers a pass for any number of classes; gbdi::decode_page needed
-//    about seven per page.  With one width class (every serving config) the
-//    passes are branch-free and take two groups a step, so a warp keeps two
-//    chains of shared-memory loads in flight.  The words equal
-//    gbdi::decode_page's and fr_decode's bit for bit (decode_pages_kernel
-//    exposes them for that check).
+//    barriers a pass for any number of classes; the first decode kernel's
+//    page body needed about seven per page.  With one width class (every
+//    serving config) the passes are branch-free and take two groups a step,
+//    so a warp keeps two chains of shared-memory loads in flight.  The
+//    words equal the decode kernel's (gbdi_decode.cu) and fr_decode's bit
+//    for bit (decode_pages_kernel exposes them for that check).
 // 2. Attention over the pass's T = N*pt tokens in tiles of 8, with no block
 //    barrier: warp w owns a fixed set of (kv, group) rows for the whole run,
 //    lanes run over channel pairs (one 32-bit load, two bf16 channels), and
@@ -230,23 +230,6 @@ __device__ AttnSmem carve(int* smem, const AttnArgs& a) {
 // a bf16 word as the float32 it widens to, exactly
 __device__ __forceinline__ float bf16_word(unsigned w) { return __uint_as_float(w << 16); }
 
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // j / P for 0 <= j < 2^22 through a float reciprocal, corrected to exact.
 __device__ __forceinline__ int div_exact(int j, int P, float inv_p) {
   int q = __float2int_rz(__int2float_rn(j) * inv_p);
@@ -312,7 +295,7 @@ __device__ __forceinline__ int buffer_page(int pg, int n_s, int N) {
 
 // The table entry of a pointer code: a base's own entry, then one entry
 // for the zero and outlier codes (value 0) and one for the codes past them
-// (the last base, as gbdi::decode_page clips them); none has a class.
+// (the last base, as the decode kernel clips them); none has a class.
 __device__ __forceinline__ int tab_index(int code, int nb) {
   return code < nb ? code : code <= nb + 1 ? nb : nb + 1;
 }
@@ -329,7 +312,7 @@ __device__ __forceinline__ void codes4(const int* ptrs, int p0, int b, unsigned 
 }
 
 // Decode the staged pass `st` (n_s valid slots of K and V) into s.words as
-// 16-bit words, bit for bit as gbdi::decode_page and fr_decode.  The staged
+// 16-bit words, bit for bit as the decode kernel and fr_decode.  The staged
 // copies must have landed and the block synced; every thread calls it, and
 // it ends with a barrier, so the words are ready on return.
 //

@@ -2,9 +2,11 @@
 
 The kernel (``csrc/gbdi_decode.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/gbdi_decode.py`` (``gbdi_decode_pallas``).  It is bound by
-bytes: one blob read and one page written per page; see the source note for
-the design.  The plain version is :func:`repro_torch.core.gbdi_fr.fr_decode`,
-and the kernel must match it bit for bit.
+bytes: one blob read and one page written per page.  A warp stages a page's
+blob in shared memory, decodes it 128 words a step with the words in
+registers, and writes each word once; see the source note for the design.
+The plain version is :func:`repro_torch.core.gbdi_fr.fr_decode`, and the
+kernel must match it bit for bit, on any blob of the right shapes.
 
 :func:`gbdi_decode` launches the kernel when the blob lies on a CUDA device
 and counts the launch in :data:`launch_count`; for a blob on the CPU it runs
@@ -18,24 +20,53 @@ from repro_torch.core.format import TableLike, as_base_table
 from repro_torch.core.gbdi_fr import FRConfig, fr_decode
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdi_encode import (
-    MISC_INTS,
+    MAX_CLASSES,
+    SMEM_LIMIT_BYTES,
     check_cuda_input,
     check_smem,
-    k_padded,
     kernel_iparams,
     kernel_meta,
     pad_table,
 )
 
+#: warps of a decode block at most (``kMaxWarps``): a warp decodes one page at a time
+MAX_WARPS = 4
+
 #: kernel launches made by :func:`gbdi_decode` (CUDA tensors only)
 launch_count = 0
 
 
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def block_warps(cfg: FRConfig) -> int:
+    """Warps of a decode block (``dec_warps``): as many as fit shared
+    memory, at most :data:`MAX_WARPS`; 0 where not one warp's page fits."""
+    fixed, per_warp = _smem_ints(cfg)
+    return min(MAX_WARPS, (SMEM_LIMIT_BYTES // 4 - fixed) // per_warp)
+
+
+def _smem_ints(cfg: FRConfig) -> tuple[int, int]:
+    """(ints of the block's table and profile meta, ints a warp stages)."""
+    n_tab = 1 << cfg.ptr_bits if cfg.ptr_bits <= 8 else cfg.num_bases + 2
+    fixed = _align4(2 * n_tab + 2 * cfg.num_profiles * cfg.num_classes)
+    per_warp = (2 * (cfg.page_words // 32) + 4 * (MAX_CLASSES + 2) + _align4(cfg.ptr_lanes)
+                + _align4(cfg.delta_lanes) + 2 * _align4(cfg.outlier_cap))
+    return fixed, per_warp
+
+
 def smem_bytes(cfg: FRConfig) -> int:
-    """Dynamic shared memory of one decode block (mirrors ``dec_smem_bytes``)."""
-    P, chunks = cfg.page_words, cfg.page_words // 32
-    return 4 * (3 * P + 2 * chunks + 1 + cfg.delta_lanes + 2 * k_padded(cfg)
-                + MISC_INTS) + P
+    """Dynamic shared memory of one decode block (mirrors ``dec_smem_bytes``):
+    the code table as (base, class) pairs (every code of pointers up to 8
+    bits, else the bases and two entries), and the profiles' caps and lane
+    offsets; then for each warp its outlier bitmap (a bit a page word and
+    the slot of each 32 bits' first), its page's class table and a zero
+    lane, and its page's staged blob (ptr and delta lanes, outlier indices
+    and values).  Where not one warp fits, one warp's need (past the
+    limit)."""
+    fixed, per_warp = _smem_ints(cfg)
+    return 4 * (fixed + max(block_warps(cfg), 1) * per_warp)
 
 
 def gbdi_decode_plain(blob: dict[str, torch.Tensor], table: TableLike, cfg: FRConfig) -> torch.Tensor:
@@ -81,4 +112,5 @@ def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike, cfg: FRConfig) 
     return out
 
 
-__all__ = ["gbdi_decode", "gbdi_decode_plain", "launch_count", "smem_bytes"]
+__all__ = ["MAX_WARPS", "block_warps", "gbdi_decode", "gbdi_decode_plain", "launch_count",
+           "smem_bytes"]

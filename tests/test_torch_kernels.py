@@ -7,6 +7,8 @@ hand-written kernels and compare them with their plain versions bit for bit;
 they skip where there is no card.  The JAX reference is imported inside
 the tests that need it, so the card tests also run where JAX is absent.
 """
+import importlib.util
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -79,22 +81,29 @@ def test_pad_table_matches_reference(ref, num_bases):
 
 def test_smem_budget_check():
     """The shared-memory check stands where the VMEM check stood: default
-    pages fit one block, a decode page past 227 KB raises (no fallback),
-    and so does an encode page past the words its block's registers hold.
-    The encode keeps its words' state in registers, so its block needs far
-    less shared memory than the decode's."""
+    pages fit one block, a page whose decode warp cannot stage its blob in
+    227 KB raises (no fallback), and so does an encode page past the words
+    its block's registers hold.  The decode block stages one page blob for
+    each of its warps (fewer warps for large pages), so it needs more
+    shared memory than the encode's block."""
     for kw in (DEFAULT16, DEFAULT32, ADAPTIVE):
         cfg = tfr.FRConfig(**kw)
         t_enc.check_smem(cfg)
         t_enc.check_smem(cfg, t_dec.smem_bytes(cfg))
+        assert t_dec.block_warps(cfg) == t_dec.MAX_WARPS
         assert t_enc.smem_bytes(cfg) < t_dec.smem_bytes(cfg) <= t_enc.SMEM_LIMIT_BYTES
     assert t_enc.smem_bytes(tfr.FRConfig(**DEFAULT16)) == 2680
+    assert t_dec.smem_bytes(tfr.FRConfig(**DEFAULT16)) == 16592
     big = tfr.FRConfig(word_bits=16, page_words=32768, width_set=(4, 8),
                        bucket_caps=(4096, 28672), outlier_cap=64)
-    with pytest.raises(ValueError, match="shared memory"):
-        t_enc.check_smem(big, t_dec.smem_bytes(big))
+    t_enc.check_smem(big, t_dec.smem_bytes(big))     # the decode takes this page
     with pytest.raises(ValueError, match="lower page_words"):
         t_enc.check_smem(big)
+    huge = tfr.FRConfig(word_bits=16, page_words=262144, width_set=(4, 8),
+                        bucket_caps=(32768, 229376), outlier_cap=64)
+    assert t_dec.block_warps(huge) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        t_enc.check_smem(huge, t_dec.smem_bytes(huge))
     edge = tfr.FRConfig(word_bits=16, page_words=t_enc.MAX_PAGE_WORDS, width_set=(4, 8),
                         bucket_caps=(256, 2048), outlier_cap=64)
     t_enc.check_smem(edge)
@@ -321,3 +330,92 @@ def test_smem_formula_matches_kernel_source(cuda_device):
         ip = _build.int_array(t_enc.kernel_iparams(cfg, 1))
         assert _build.load("gbdi_encode").gbdi_encode_smem_bytes(ip) == t_enc.smem_bytes(cfg)
         assert _build.load("gbdi_decode").gbdi_decode_smem_bytes(ip) == t_dec.smem_bytes(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the decode on blobs the encoder never writes
+# ---------------------------------------------------------------------------
+
+THREE = dict(word_bits=16, page_words=512, num_bases=9, width_set=(2, 4, 8),
+             bucket_caps=(64, 64, 384), outlier_cap=16)
+FOUR = dict(word_bits=32, page_words=512, num_bases=9, width_set=(2, 4, 8, 16),
+            bucket_caps=(32, 64, 128, 256), outlier_cap=24)
+# 300 bases: 16-bit pointer codes, two lanes for a lane's four words
+PTR16 = dict(word_bits=32, page_words=512, num_bases=300, width_set=(8, 16),
+             bucket_caps=(64, 256), outlier_cap=32)
+
+
+def handmade_blobs(cfg, n_pages, seed):
+    """(blob, bases, widths): ``chip_smoke.handmade_blobs``, the generator of
+    blobs the encoder never writes that the card's smoke test decodes too
+    (its docstring lists what the blobs hold)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.handmade_blobs(cfg, n_pages, seed)
+
+
+HANDMADE = [SMALL, WIDE, ADAPTIVE, THREE, FOUR]
+HANDMADE_IDS = ["small", "wide", "adaptive", "three-classes", "four-classes"]
+
+
+@pytest.mark.parametrize("kw", HANDMADE, ids=HANDMADE_IDS)
+def test_decode_of_handmade_blobs_matches_reference(ref, kw):
+    """The port's fr_decode (and the wrapper on the CPU) equals the JAX
+    oracle fr_decode word for word on blobs the encoder never writes.  The
+    oracle is the ground truth here, not the Pallas decode in interpret
+    mode: that kernel differs from fr_decode on such adaptive pages (pages
+    with valid profile ids 1 and 2)."""
+    jnp = ref.jnp
+    tc, jc = tfr.FRConfig(**kw), ref.fr.FRConfig(**kw)
+    blob, bases, widths = handmade_blobs(tc, 64, tc.page_words + tc.num_classes)
+    live = np.clip(blob["n_out"], 0, tc.outlier_cap)
+    assert (blob["n_out"] < 0).any() and (blob["n_out"] > tc.outlier_cap).any()
+    assert any((np.diff(blob["out_idx"][p, :live[p]]) <= 0).any() for p in range(64))
+    if tc.num_profiles > 1:
+        assert {-1, tc.num_profiles} <= set(blob["profile"].tolist())
+    codes = tfr.unpack_lanes(torch.from_numpy(blob["ptrs"]), tc.ptr_bits, tc.page_words)
+    assert int(codes.max()) > tc.num_bases + 1
+    want = ref.fr.fr_decode({k: jnp.asarray(v) for k, v in blob.items()},
+                            ref.fr.BaseTable(jnp.asarray(bases), jnp.asarray(widths)), jc)
+    tblob = interop.blob_from_numpy(blob, device="cpu")
+    table = interop.table_from_numpy(bases, widths, device="cpu")
+    got = tfr.fr_decode(tblob, table, tc)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(t_dec.gbdi_decode(tblob, table, tc), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", HANDMADE + [DEFAULT16, DEFAULT32, FIVE, V1_K30, PTR16],
+                         ids=HANDMADE_IDS + ["default16", "default32", "five-classes", "v1-k30",
+                                             "ptr16"])
+def test_decode_of_handmade_blobs_on_card(cuda_device, kw):
+    """Kernel B against the plain decode, bit for bit, on the same kind of
+    blobs, for every number of width classes and pointer widths 4, 8, 16."""
+    cfg = tfr.FRConfig(**kw)
+    blob, bases, widths = handmade_blobs(cfg, 256, 5)
+    blob = interop.blob_from_numpy(blob, device=cuda_device)
+    table = interop.table_from_numpy(bases, widths, device=cuda_device)
+    n = t_dec.launch_count
+    got = t_dec.gbdi_decode(blob, table, cfg)
+    torch.cuda.synchronize()
+    assert t_dec.launch_count == n + 1
+    assert torch.equal(got, t_dec.gbdi_decode_plain(blob, table, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_words", [384, 1024, 4096, 8192, 16640])
+def test_decode_page_sizes_on_card(cuda_device, page_words):
+    """Pages of 3 to 130 groups of 128 words: blobs from the plain encode,
+    kernel B against the plain decode, bit for bit."""
+    cfg = tfr.FRConfig(word_bits=16, page_words=page_words, num_bases=4, width_set=(4, 8),
+                       bucket_caps=(page_words // 8, page_words // 2), outlier_cap=32)
+    x, bases, widths = ladder_pages(cfg, 3, page_words)
+    table = interop.table_from_numpy(bases, widths, device=cuda_device)
+    blob = t_enc.gbdi_encode_plain(torch.from_numpy(x).to(cuda_device), table, cfg)
+    blob = {k: v.contiguous() for k, v in blob.items()}
+    got = t_dec.gbdi_decode(blob, table, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, t_dec.gbdi_decode_plain(blob, table, cfg))
+    assert int(blob["n_dropped"].sum()) > 0
