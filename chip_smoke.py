@@ -44,7 +44,18 @@ Phases, in order; any failure exits non-zero before the final line:
    yardstick ``scaled_dot_product_attention`` over the same context held
    as a raw bf16 cache; then decode-all + that SDPA call, and the per-step
    latency (append + attend) of the paged, resident and oracle backends
-   at contexts of 4,096 and 32,768.
+   at contexts of 4,096 and 32,768;
+8. the paper's suite (:func:`paper_suite`): every registered family (the
+   twelve dump families and ``ml_kvcache_bf16``) x {gbdi, bdi, fr} at 1 MiB
+   fitted on the CPU's plain path, the model carried to the card, blobs,
+   sizes and decodes held to the CPU's; ``evaluate(suite="all")`` on the
+   card at 16 MiB per family with the card's fit (39 cells, all verified,
+   the table with per-kind geomeans and the CSV lines); the 15 sweep
+   configs (static and adaptive4) over ``605.mcf_s`` and
+   ``ml_kvcache_bf16`` at 1 MiB, card blobs against the CPU's on carried
+   tables, then the sweep's rows; the throughput rows of gbdi, bdi and fr at
+   16 MiB; the launch counters of encode and decode set to 0 before the
+   phase and read after, and the phase's wall time.
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
@@ -59,6 +70,10 @@ import zlib
 from pathlib import Path
 
 STREAM_BYTES = 256 << 20
+#: phase 8: per-family bytes of the card-vs-CPU checks and of the sweep, and
+#: of the full suite (4x the 4 MiB of benchmarks/bench_compression.py)
+CHECK_BYTES = 1 << 20
+SUITE_BYTES = 16 << 20
 CHUNK_PAGES = 4096
 TIMING_REPEATS = 10
 GOLDEN_CRCS = [3381184247, 1710504446, 3996448536]
@@ -117,6 +132,104 @@ def handmade_blobs(cfg, n_pages: int, seed: int):
     return blob, bases, widths
 
 
+def blob_diff(a: dict, b: dict) -> list[str]:
+    """Names of the fields where two codec blobs differ (tensors compared on
+    the host, ints and configs by value; keys starting with ``_`` skipped)."""
+    import torch
+
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        if k.startswith("_"):
+            continue
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            same = x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        else:
+            same = x == y
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def paper_suite(card, check_bytes: int = CHECK_BYTES, suite_bytes: int = SUITE_BYTES) -> list:
+    """Phase 8, the paper's suite: (a) every family x {gbdi, bdi, fr} fitted
+    once on the CPU's plain path and encoded on ``card`` and on the CPU with
+    that model or table, blob for blob, ratio for ratio, then decoded on
+    ``card``; (b) ``evaluate(suite="all")`` on ``card`` at ``suite_bytes``
+    per family with the card's own fit, every cell verified; (c) every
+    sweep config (static and adaptive4) over two streams of ``check_bytes``,
+    the card's blobs against the CPU's on one carried table, then the
+    sweep's rows on ``card``.  Returns the suite's cells; raises on any
+    disagreement."""
+    from repro_torch.eval import run as eval_run
+    from repro_torch.eval.codecs import FRCodec, default_codecs
+    from repro_torch.eval.workloads import default_workloads
+
+    reg = default_workloads()
+    cpu, on_card = default_codecs("cpu"), default_codecs(str(card))
+    t0 = time.perf_counter()
+    for wl in reg:
+        data = wl.generate(check_bytes, 0)
+        for cname in ("gbdi", "bdi", "fr"):
+            ref, dut = cpu.make(cname, wl.word_bits), on_card.make(cname, wl.word_bits)
+            words = ref.stream(data)
+            model = ref.fit(words)                 # the plain fit, carried to the card
+            pb = ref.encode(words, model)
+            kwords = dut.stream(data)
+            kb = dut.encode(kwords, model.to(card) if model is not None else None)
+            bad = blob_diff(pb, kb)
+            if bad:
+                raise AssertionError(f"[8a] {wl.name}/{cname}: card blob differs in {bad}")
+            if ref.size_bits(pb) != dut.size_bits(kb):
+                raise AssertionError(f"[8a] {wl.name}/{cname}: size {dut.size_bits(kb)} != "
+                                     f"{ref.size_bits(pb)}")
+            mism = int((dut.decode(kb) != kwords).sum())
+            if mism > dut.dropped_words(kb):
+                raise AssertionError(f"[8a] {wl.name}/{cname}: {mism} words differ after decode "
+                                     f"> {dut.dropped_words(kb)} dropped")
+        log(f"[8a] {wl.name}: gbdi, bdi, fr blobs and sizes equal the CPU's on the carried "
+            f"model ({check_bytes} B); decoded on the card within drops")
+    log(f"[8a] {len(reg)} families x 3 codecs in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cells = eval_run.evaluate(reg, on_card, suite="all", codecs="gbdi,bdi,fr",
+                              n_bytes=suite_bytes, seed=0, repeats=3)
+    bad = [f"{c.workload}/{c.codec}: {c.error}" for c in cells if not c.verified]
+    if bad or len(cells) != 3 * len(reg):
+        raise AssertionError(f"[8b] {len(cells)} cells, failed: {bad}")
+    log(f"[8b] evaluate(suite='all', codecs='gbdi,bdi,fr') at {suite_bytes} B per family: "
+        f"{len(cells)} cells verified in {time.perf_counter() - t0:.1f} s")
+    log(eval_run.format_table(cells))
+    for line in eval_run.csv_lines(cells):
+        log(line)
+
+    t0 = time.perf_counter()
+    names = ("605.mcf_s", "ml_kvcache_bf16")
+    grid = eval_run.sweep_grid("static,adaptive4")
+    for point in grid:
+        for wname in names:
+            wl = reg.get(wname)
+            cfg = point.config(wl.word_bits)
+            ref = FRCodec(word_bits=wl.word_bits, device="cpu", cfg=cfg)
+            dut = FRCodec(word_bits=wl.word_bits, device=str(card), cfg=cfg)
+            data = wl.generate(check_bytes, 0)
+            words = ref.stream(data)
+            table = ref.fit(words)
+            bad = blob_diff(ref.encode(words, table), dut.encode(dut.stream(data), table.to(card)))
+            if bad:
+                raise AssertionError(f"[8c] {wname} k{point.num_bases} shape {point.shape_idx} "
+                                     f"{point.profile_set}: card blob differs in {bad}")
+    log(f"[8c] {len(grid)} sweep configs x {len(names)} streams: card blobs equal the CPU's "
+        f"field for field on carried tables ({check_bytes} B)")
+    rows = eval_run.sweep(reg, suite=",".join(names), device=str(card), n_bytes=check_bytes,
+                          profile_sets="static,adaptive4")
+    if len(rows) != len(grid) or not all(r["verified"] for r in rows):
+        raise AssertionError(f"[8c] sweep rows: {[(r['config'], r['verified']) for r in rows]}")
+    log(eval_run.format_sweep_table(rows))
+    log(f"[8c] sweep in {time.perf_counter() - t0:.1f} s")
+    return cells
+
+
 def main() -> int:
     import torch
 
@@ -130,7 +243,7 @@ def main() -> int:
     from repro_torch.core.format_doc import serialize_page
     from repro_torch.core.gbdi_fr import FRConfig, bf16_to_words, fit_fr_bases
     from repro_torch.eval import run as eval_run
-    from repro_torch.eval.codecs import FRCodec, default_config
+    from repro_torch.eval.codecs import FRCodec, default_codecs, default_config
     from repro_torch.eval.workloads import default_workloads
     from repro_torch.kernels import _build
     from repro_torch.kernels import gbdi_decode as dec_mod
@@ -140,6 +253,7 @@ def main() -> int:
     from repro_torch.serving.engine import KVSession
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     def sync() -> None:
         torch.cuda.synchronize(dev)
@@ -587,6 +701,22 @@ def main() -> int:
             del sess
             torch.cuda.empty_cache()
 
+    # -- phase 8: the paper's suite on the card ---------------------------------
+    t8 = time.perf_counter()
+    enc_mod.launch_count = dec_mod.launch_count = 0
+    paper_suite(dev)
+    t0 = time.perf_counter()
+    tp_rows = eval_run.throughput(reg, default_codecs(), codecs="gbdi,bdi,fr",
+                                  n_bytes=SUITE_BYTES, repeats=5)
+    log(eval_run.format_throughput_table(tp_rows))
+    log(f"[8] throughput of {len(tp_rows)} rows in {time.perf_counter() - t0:.1f} s")
+    suite_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    log(f"[8] suite-phase launches: {suite_launches}; phase wall time "
+        f"{time.perf_counter() - t8:.1f} s")
+    for kname, count in suite_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{kname} was never launched in the suite phase")
+
     replaces = {"gbdi_encode": "src/repro/kernels/gbdi_encode.py:292",
                 "gbdi_decode": "src/repro/kernels/gbdi_decode.py:148",
                 "gbdi_paged_attn": "src/repro/kernels/gbdi_paged_attn.py:160"}
@@ -596,7 +726,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
-            "replaces": replaces[kname], "launches": launches[kname] + serve_launches[kname],
+            "replaces": replaces[kname],
+            "launches": launches[kname] + serve_launches[kname] + suite_launches[kname],
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })
@@ -607,6 +738,7 @@ def main() -> int:
         "max_abs_err": attn_err["out"], "ms": pa_ms, "plain_ms": pa_plain_ms,
         "bound_ms": pa_bound, "bound_by": pa_bound_by, "library_ms": lib_ms,
     })
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -78,7 +78,10 @@ def _nanquantile_cols(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Column-wise linear-interpolation quantiles ignoring NaN: (n, k) -> (len(q), k).
 
     Mirrors ``jnp.nanquantile`` (sort with NaN last, float32 positions
-    ``q * (count - 1)``, floor/ceil clamped into the live rows).
+    ``q * (count - 1)``, floor/ceil clamped into the live rows).  XLA's CPU
+    compiler contracts the interpolation ``low * low_w + high * high_w`` to
+    ``fma(high, high_w, low * low_w)``, so that is what is computed here
+    (:func:`_fma_f32`).
     """
     s = torch.sort(a, dim=0).values
     counts = (~torch.isnan(s)).sum(dim=0).to(torch.float32)         # (k,)
@@ -91,7 +94,28 @@ def _nanquantile_cols(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     high = torch.maximum(torch.zeros_like(high), torch.minimum(high, top)).long()
     low_v = torch.gather(s, 0, low)
     high_v = torch.gather(s, 0, high)
-    return low_v * low_w + high_v * high_w
+    return _fma_f32(high_v, high_w, low_v * low_w)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    ``a * b`` is exact in float64; the float64 sum ``s`` and its exact error
+    ``err`` (TwoSum) hold ``a * b + c`` exactly.  Rounding ``s`` to float32
+    is then correct except where ``s`` sits exactly halfway between two
+    float32 values and ``err`` breaks the tie, which is repaired.
+    """
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    back = r.double()
+    other = torch.nextafter(r, torch.where(s > back, torch.inf, -torch.inf).to(r.dtype))
+    tie = (s != back) & ((back + other.double()) * 0.5 == s) & (err != 0)
+    toward_other = (err > 0) == (other.double() > back)
+    return torch.where(tie & toward_other, other, r)
 
 
 def fit_bases(
@@ -175,7 +199,7 @@ def fit_bases(
 
 
 def fit_bases_host(
-    data_words: npt.NDArray[Any],
+    data_words: npt.NDArray[Any] | torch.Tensor,
     *,
     num_bases: int,
     width_set: tuple[int, ...],
@@ -186,23 +210,33 @@ def fit_bases_host(
     seed: int = 0,
     device: str | torch.device | None = None,
 ) -> tuple[npt.NDArray[np.int32], npt.NDArray[np.int32]]:
-    """Host convenience wrapper: subsample, drop zero words, fit."""
-    dev = resolve_device(device)
-    flat = np.ascontiguousarray(data_words).reshape(-1)
+    """Host convenience wrapper: subsample, drop zero words, fit.
+
+    ``data_words`` is a numpy array (uploaded to ``device``, the card by
+    default) or a tensor (fitted on its own device unless ``device`` names
+    another).  The seeded subsample draws its indices on the host with
+    numpy, as the reference does, whatever the device.
+    """
+    if isinstance(data_words, torch.Tensor):
+        dev = data_words.device if device is None else torch.device(device)
+        flat = data_words.reshape(-1).to(device=dev, dtype=torch.int64)
+    else:
+        dev = resolve_device(device)
+        host = np.ascontiguousarray(data_words).reshape(-1).astype(np.int64)
+        flat = torch.from_numpy(host).to(dev)
     flat = flat[flat != 0]
-    if flat.size == 0:  # degenerate all-zero input: any bases work
+    if flat.numel() == 0:  # degenerate all-zero input: any bases work
         bases = np.arange(num_bases, dtype=np.int32)
         return bases, np.full(num_bases, width_set[0], dtype=np.int32)
-    if flat.size > sample_words:
+    if flat.numel() > sample_words:
         rng = np.random.default_rng(seed)
-        flat = flat[rng.choice(flat.size, sample_words, replace=False)]
+        idx = rng.choice(flat.numel(), sample_words, replace=False)
+        flat = flat[torch.from_numpy(idx).to(dev)]
     mask = (1 << word_bits) - 1
-    sample = (flat.astype(np.int64) & mask).astype(np.int64)
     half = 1 << (word_bits - 1)
-    sample = ((sample + half) & mask) - half  # signed view, int32-safe
+    sample = (((flat & mask) + half) & mask) - half  # signed view, int32-safe
     bases, widths = fit_bases(
-        torch.as_tensor(sample.astype(np.int32), device=dev),
-        num_bases=num_bases, width_set=tuple(width_set), word_bits=word_bits,
-        iters=iters, modified=modified,
+        sample.to(torch.int32), num_bases=num_bases, width_set=tuple(width_set),
+        word_bits=word_bits, iters=iters, modified=modified,
     )
     return bases.cpu().numpy().astype(np.int32), widths.cpu().numpy().astype(np.int32)

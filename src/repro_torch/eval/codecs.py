@@ -1,12 +1,20 @@
-"""``fit/encode/decode/size_bits`` adapter over the port's GBDI-FR path.
+"""``fit/encode/decode/size_bits`` adapters over the port's codec paths.
 
-PyTorch counterpart of :class:`repro.eval.codecs.FRCodec`.  The word stream
-lives on the codec's device from end to end: :meth:`FRCodec.stream` uploads
-a buffer once as int32 words (16-bit words zero-extended, 32-bit words
-reinterpreted), :meth:`FRCodec.encode` takes that device tensor and
-:meth:`FRCodec.decode` returns one.  On a CUDA device encode and decode run
-the hand-written kernels; on the CPU (``device="cpu"``, asked for by name)
-they run the plain versions.
+PyTorch counterpart of :mod:`repro.eval.codecs`: the paper's GBDI host codec
+(:class:`GBDICodec`, :mod:`repro_torch.core.gbdi`), the B∆I baseline
+(:class:`BDICodec`, :mod:`repro_torch.core.bdi`) and the fixed-rate GBDI-FR
+pages (:class:`FRCodec`).  The word stream lives on the codec's device from
+end to end: ``stream(data)`` uploads a buffer once as int32 words (16-bit
+words zero-extended, 32-bit words reinterpreted), ``fit`` and ``encode``
+take that device tensor and ``decode`` returns the same stream, cut to its
+word count.  On a CUDA device FR's encode and decode run the hand-written
+kernels; GBDI's assignment and bit packing and B∆I run as plain PyTorch on
+the card (the reference runs them outside any Pallas kernel too).  On the
+CPU (``device="cpu"``, asked for by name) everything runs the plain
+versions.  The lossless codecs drop no word (``dropped_words`` is 0).
+
+Names: the port's ``fr`` on the CPU is the reference's ``fr`` (its jnp
+oracle); on the card it is the reference's ``fr_kernel``.
 """
 from __future__ import annotations
 
@@ -17,11 +25,102 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core import bdi, gbdi
 from repro_torch.core.format import BaseTable
-from repro_torch.core.gbdi import to_words, words_to_signed
 from repro_torch.core.gbdi_fr import FRConfig, fit_fr_bases
 from repro_torch.eval.registry import CodecRegistry
 from repro_torch.kernels import ops
+
+
+def word_bits_for_dtype(dtype: Any) -> int:
+    """Natural codec word size for a tensor dtype, by bit pattern: 2-byte
+    dtypes (bf16/fp16/int16) frame as 16-bit words, everything else as the
+    paper's 32-bit memory words.  Accepts numpy dtypes and torch dtypes."""
+    if isinstance(dtype, torch.dtype):
+        return 16 if dtype.itemsize == 2 else 32
+    return 16 if np.dtype(dtype).itemsize == 2 else 32
+
+
+@dataclasses.dataclass
+class _DeviceCodec:
+    """What every adapter shares: its device and the upload of a buffer."""
+
+    word_bits: int = 32
+    device: str | None = None      # None: the CUDA card; "cpu" must be asked for
+
+    def __post_init__(self) -> None:
+        self._device = resolve_device(self.device)
+
+    @property
+    def torch_device(self) -> torch.device:
+        return self._device
+
+    def stream(self, data: np.ndarray) -> torch.Tensor:
+        """Upload a raw buffer as the (n_words,) int32 word stream."""
+        return gbdi.word_stream(data, self.word_bits, self._device)
+
+    def dropped_words(self, blob: dict[str, Any]) -> int:
+        return 0
+
+
+@dataclasses.dataclass
+class GBDICodec(_DeviceCodec):
+    """Paper-faithful host codec: variable-length bit stream, lossless."""
+
+    name: str = "gbdi"
+    lossless: bool = True
+
+    def _config(self) -> gbdi.GBDIConfig:
+        widths = (4, 8) if self.word_bits == 16 else (4, 8, 16, 24)
+        return gbdi.GBDIConfig(word_bits=self.word_bits, width_set=widths)
+
+    def fit(self, words: torch.Tensor) -> gbdi.GBDIModel:
+        return gbdi.fit(words, self._config(), self._device)
+
+    def encode(self, words: torch.Tensor, model: gbdi.GBDIModel) -> dict[str, Any]:
+        return gbdi.encode(words, model.to(self._device))
+
+    def decode(self, blob: dict[str, Any]) -> torch.Tensor:
+        return gbdi.decode(blob)
+
+    def size_bits(self, blob: dict[str, Any]) -> int:
+        return gbdi.compressed_size_bits(blob)
+
+
+@dataclasses.dataclass
+class BDICodec(_DeviceCodec):
+    """Per-block B∆I baseline (byte blocks; ``word_bits`` only names the view)."""
+
+    name: str = "bdi"
+    lossless: bool = True
+
+    def fit(self, words: torch.Tensor) -> None:
+        return None  # no global state — that is the contrast with GBDI
+
+    def encode(self, words: torch.Tensor, model: None) -> dict[str, Any]:
+        """Compress the stream's memory bytes: each word's low
+        ``word_bits`` bits, little-endian, as :func:`gbdi.to_words` framed them."""
+        words = words.to(self._device)
+        if self.word_bits == 16:
+            raw = (((words.to(torch.int64) + (1 << 15)) & 0xFFFF) - (1 << 15)).to(torch.int16)
+        else:
+            raw = words.to(torch.int32)
+        blob = bdi.compress(raw, device=self._device)
+        blob["_word_bits"] = self.word_bits
+        blob["_n_words"] = int(words.numel())
+        return blob
+
+    def decode(self, blob: dict[str, Any]) -> torch.Tensor:
+        """The (n_words,) int32 word stream, on the codec's device."""
+        out = bdi.decompress(blob)
+        if blob["_word_bits"] == 16:
+            words = out.view(torch.int16).to(torch.int32) & 0xFFFF
+        else:
+            words = out.view(torch.int32)
+        return words[: blob["_n_words"]]
+
+    def size_bits(self, blob: dict[str, Any]) -> int:
+        return bdi.compressed_size_bits(blob)
 
 
 def default_config(word_bits: int) -> FRConfig:
@@ -36,31 +135,21 @@ def default_config(word_bits: int) -> FRConfig:
 
 
 @dataclasses.dataclass
-class FRCodec:
+class FRCodec(_DeviceCodec):
     """GBDI-FR v2 fixed-rate pages; capacity-bounded lossless (dropped
     outliers decode to 0 and are counted in ``blob['n_dropped']``)."""
 
     word_bits: int = 16
-    device: str | None = None      # None: the CUDA card; "cpu" must be asked for
     name: str = "fr"
     lossless: bool = False
     cfg: FRConfig | None = None
-
-    def __post_init__(self) -> None:
-        self._device = resolve_device(self.device)
-
-    @property
-    def torch_device(self) -> torch.device:
-        return self._device
 
     def _config(self) -> FRConfig:
         return self.cfg if self.cfg is not None else default_config(self.word_bits)
 
     def stream(self, data: np.ndarray) -> torch.Tensor:
-        """Upload a raw buffer as the (n_words,) int32 word stream."""
-        cfg = self._config()
-        signed = words_to_signed(to_words(data, cfg.word_bits), cfg.word_bits)
-        return torch.from_numpy(np.ascontiguousarray(signed, np.int32)).to(self._device)
+        """Upload a raw buffer as the (n_words,) int32 words of the config."""
+        return gbdi.word_stream(data, self._config().word_bits, self._device)
 
     def fit(self, words: torch.Tensor) -> BaseTable:
         # fit_fr_bases drops zeros and caps/tiles the sample
@@ -117,8 +206,11 @@ class FRCodec:
 
 def default_codecs(device: str | None = None) -> CodecRegistry:
     reg = CodecRegistry()
+    reg.register("gbdi", lambda wb: GBDICodec(word_bits=wb, device=device))
+    reg.register("bdi", lambda wb: BDICodec(word_bits=wb, device=device))
     reg.register("fr", lambda wb: FRCodec(word_bits=wb, device=device))
     return reg
 
 
-__all__ = ["FRCodec", "default_codecs", "default_config"]
+__all__ = ["BDICodec", "FRCodec", "GBDICodec", "default_codecs", "default_config",
+           "word_bits_for_dtype"]

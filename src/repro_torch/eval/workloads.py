@@ -1,81 +1,27 @@
-"""Workload families of the port's main path, generated with numpy from a seed.
+"""The port's workload table: the synthetic dump families plus ``ml_kvcache_bf16``.
 
-Copies of the reference generators, so both packages see the same words:
+PyTorch counterpart of :mod:`repro.eval.workloads`:
 
-* ``605.mcf_s`` and ``col_int_keys`` — :func:`spec_mcf`, :func:`col_int_keys`,
-  :func:`_interleave`, :func:`_stable_seed` and :func:`generate` from
-  ``src/repro/data/workloads.py``;
+* the twelve C, Java and Column families come from
+  :mod:`repro_torch.data.workloads` (copies of the reference generators, so
+  both packages see the same bytes);
 * ``ml_kvcache_bf16`` — channel-structured attention K/V in bf16, from
   ``src/repro/eval/workloads.py``; float32 -> bf16 rounds to nearest even in
   torch, as it does in JAX.
 
-Only the generation is numpy; nothing here touches the card.
+The ML families that need a model (weights, AdamW moments, gradients) and
+the ``dump:<name>`` families of real images are not ported yet.  Only the
+generation is numpy; nothing here touches the card.
 """
 from __future__ import annotations
 
 import functools
-import zlib
-from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.data.workloads import WORKLOADS, generate
 from repro_torch.eval.registry import Workload, WorkloadRegistry
-
-
-def _interleave(rng: np.random.Generator, parts: list[np.ndarray]) -> np.ndarray:
-    """Concatenate in 64-byte-block units and shuffle blocks, like pages of
-    a real heap mixing allocation types."""
-    blocks = []
-    for arr in parts:
-        a = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
-        pad = (-a.size) % 64
-        if pad:
-            a = np.concatenate([a, np.zeros(pad, np.uint8)])
-        blocks.append(a.reshape(-1, 64))
-    all_blocks = np.concatenate(blocks)
-    rng.shuffle(all_blocks)
-    return all_blocks.reshape(-1).view(np.uint32)
-
-
-def spec_mcf(rng: np.random.Generator, n_bytes: int) -> np.ndarray:
-    """Pointer-chasing graph: node structs = {ptr, ptr, int, int}."""
-    n = n_bytes // 16
-    heap = np.uint64(0x7F3A_0000_0000)
-    ptrs1 = (heap + rng.integers(0, 1 << 26, n).astype(np.uint64) * 16).view(np.uint64)
-    ptrs2 = (heap + rng.integers(0, 1 << 26, n).astype(np.uint64) * 16).view(np.uint64)
-    ints = rng.integers(0, 4000, (n, 2)).astype(np.int32)
-    rec = np.empty((n, 4), np.uint32)
-    rec[:, 0] = (ptrs1 & 0xFFFFFFFF).astype(np.uint32)
-    rec[:, 1] = (ptrs1 >> 32).astype(np.uint32)
-    rec[:, 2:] = ints.view(np.uint32).reshape(n, 2)
-    del ptrs2   # drawn for the reference's random stream, not stored
-    return _interleave(rng, [rec, np.zeros(n // 4, np.uint32)])
-
-
-def col_int_keys(rng: np.random.Generator, n_bytes: int) -> np.ndarray:
-    """Sorted 64-bit surrogate keys (skewed gaps) + epoch-second timestamps."""
-    n = n_bytes // 8
-    gaps = np.minimum(rng.zipf(1.7, n // 2), 1 << 12).astype(np.uint64)
-    keys = (np.uint64(1) << np.uint64(40)) + np.cumsum(gaps)
-    ts = (np.uint64(1_700_000_000) + np.cumsum(rng.poisson(3, n // 2))).astype(np.uint64)
-    return _interleave(rng, [keys.view(np.uint32), ts.astype(np.uint32)])
-
-
-WORKLOADS: dict[str, tuple[str, Callable[[np.random.Generator, int], np.ndarray]]] = {
-    "605.mcf_s": ("C", spec_mcf),
-    "col_int_keys": ("Column", col_int_keys),
-}
-
-
-def _stable_seed(name: str, seed: int) -> int:
-    # not hash(): Python string hashing is salted per process
-    return (seed ^ zlib.crc32(name.encode())) % (1 << 31)
-
-
-def generate(name: str, n_bytes: int = 4 << 20, seed: int = 0) -> np.ndarray:
-    _kind, fn = WORKLOADS[name]
-    return fn(np.random.default_rng(_stable_seed(name, seed)), n_bytes)
 
 
 def _fit_bytes(buf: np.ndarray, n_bytes: int) -> np.ndarray:
@@ -100,16 +46,19 @@ def ml_kvcache_bf16(n_bytes: int, seed: int) -> np.ndarray:
 
 
 def default_workloads() -> WorkloadRegistry:
-    """The port's registry: the main-path families above."""
+    """The port's registry: every dump family, then ``ml_kvcache_bf16``."""
     reg = WorkloadRegistry()
     for name, (kind, fn) in WORKLOADS.items():
         reg.register(Workload(
             name=name, kind=kind,
             generate=functools.partial(generate, name), word_bits=32,
-            description=(fn.__doc__ or "").strip().splitlines()[0],
+            description=fn.__doc__.strip().splitlines()[0] if fn.__doc__ else "",
         ))
     reg.register(Workload(
         name="ml_kvcache_bf16", kind="ML", generate=ml_kvcache_bf16, word_bits=16,
         description="channel-structured attention K/V, bf16",
     ))
     return reg
+
+
+__all__ = ["WORKLOADS", "default_workloads", "generate", "ml_kvcache_bf16"]

@@ -418,7 +418,40 @@ def test_fit_bases_host_matches_reference():
     np.testing.assert_array_equal(tw, jw)
 
 
-@pytest.mark.parametrize("name", ["ml_kvcache_bf16", "605.mcf_s", "col_int_keys"])
+def test_nanquantile_is_the_reference_fused_interpolation():
+    """Column quantiles with NaN holes equal ``jnp.nanpercentile`` under jit
+    bit for bit: XLA's CPU compiler fuses the interpolation into one FMA,
+    which a plain ``low * lw + high * hw`` misses by an ulp at large values."""
+    import jax
+
+    qs = jnp.asarray([10.0, 25.0, 50.0, 75.0, 90.0])
+    ref = jax.jit(lambda m: jnp.nanpercentile(m, qs, axis=0))
+    q = torch.tensor([10.0, 25.0, 50.0, 75.0, 90.0]) / torch.tensor(100.0)
+    rng = np.random.default_rng(1)
+    for _ in range(60):
+        n, k = int(rng.integers(1, 600)), int(rng.integers(1, 8))
+        x = rng.normal(0, 10 ** rng.uniform(0, 7), (n, k)).round().astype(np.float32)
+        x[rng.random((n, k)) < 0.3] = np.nan
+        got = tkm._nanquantile_cols(torch.from_numpy(x), q).numpy()
+        np.testing.assert_array_equal(got, np.asarray(ref(jnp.asarray(x))))
+
+
+def test_fma_f32_rounds_once():
+    a = torch.tensor([5474585.0, 1.0, 3.0, -2.5], dtype=torch.float32)
+    b = torch.tensor([0.3000183, 1.0 + 2 ** -23, 1.0 / 3.0, 0.125], dtype=torch.float32)
+    c = torch.tensor([3951281.5, -1.0, -1.0, 7.0], dtype=torch.float32)
+    want = [np.float32(float(x) * float(y) + float(z))      # exact in float64 here
+            for x, y, z in zip(a.tolist(), b.tolist(), c.tolist())]
+    assert tkm._fma_f32(a, b, c).tolist() == [float(w) for w in want]
+    # a*b + c = 1 + 3 * 2**-24 - 2**-70: float64 rounds it onto the float32
+    # midpoint, whose tie-to-even goes up; the single rounding goes down
+    a, b, c = (torch.tensor([v], dtype=torch.float32)
+               for v in (2 ** -24 * (1 + 2 ** -23), 1 - 2 ** -23, 1 + 2 ** -23))
+    assert float((a.double() * b.double() + c.double()).float()) == 1 + 2 ** -22
+    assert float(tkm._fma_f32(a, b, c)) == 1 + 2 ** -23
+
+
+@pytest.mark.parametrize("name", ["ml_kvcache_bf16", *j_dumps.WORKLOADS])
 def test_workload_streams_identical(name):
     n_bytes = 96 << 10
     if name == "ml_kvcache_bf16":

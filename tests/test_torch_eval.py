@@ -115,20 +115,30 @@ def test_cli_on_cpu(tmp_path):
     out = tmp_path / "eval.json"
     cells = t_run.main(["--device", "cpu", "--suite", "605.mcf_s,col_int_keys",
                         "--bytes", str(64 << 10), "--repeats", "1", "--json", str(out)])
-    assert [c.workload for c in cells] == ["605.mcf_s", "col_int_keys"]
+    assert [(c.workload, c.codec) for c in cells] == [
+        (w, c) for w in ("605.mcf_s", "col_int_keys") for c in ("gbdi", "bdi", "fr")]
     assert all(c.verified and c.compression_ratio > 1 for c in cells)
-    assert out.read_text().count('"workload"') == 2
+    assert out.read_text().count('"workload"') == 6
+
+
+ENTRY_SCRIPTS = ["examples/quickstart_torch.py", "benchmarks/bench_compression_torch.py",
+           "benchmarks/bench_kmeans_torch.py"]
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """The port's modules and chip_smoke.py import neither jax nor repro."""
-    files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    """The port's modules, its example and benchmark scripts and chip_smoke.py import neither jax
+    nor repro, in their source or when loaded."""
+    files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py",
+             *(ROOT / d for d in ENTRY_SCRIPTS)]
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     offenders = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
-    code = ("import sys, repro_torch.eval.run, repro_torch.interop, repro_torch.kernels.ops, "
-            "repro_torch.serving.kv_cache, repro_torch.serving.engine, "
-            "repro_torch.kernels.gbdi_paged_attn; "
+    code = ("import sys, runpy, repro_torch.eval.run, repro_torch.interop, "
+            "repro_torch.kernels.ops, repro_torch.serving.kv_cache, repro_torch.serving.engine, "
+            "repro_torch.kernels.gbdi_paged_attn, repro_torch.core.bdi, repro_torch.core.bitpack, "
+            "repro_torch.core.gbdi, repro_torch.data.workloads, repro_torch.eval.codecs, "
+            "repro_torch.eval.workloads; "
+            f"[runpy.run_path(p) for p in {[str(ROOT / d) for d in ENTRY_SCRIPTS]!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
