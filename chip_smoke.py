@@ -46,25 +46,44 @@ Phases, in order; any failure exits non-zero before the final line:
    latency (append + attend) of the paged, resident and oracle backends
    at contexts of 4,096 and 32,768;
 8. the paper's suite (:func:`paper_suite`): every registered family (the
-   twelve dump families and ``ml_kvcache_bf16``) x {gbdi, bdi, fr} at 1 MiB
-   fitted on the CPU's plain path, the model carried to the card, blobs,
-   sizes and decodes held to the CPU's; ``evaluate(suite="all")`` on the
-   card at 16 MiB per family with the card's fit (39 cells, all verified,
-   the table with per-kind geomeans and the CSV lines); the 15 sweep
-   configs (static and adaptive4) over ``605.mcf_s`` and
-   ``ml_kvcache_bf16`` at 1 MiB, card blobs against the CPU's on carried
-   tables, then the sweep's rows; the throughput rows of gbdi, bdi and fr at
-   16 MiB; the launch counters of encode and decode set to 0 before the
-   phase and read after, and the phase's wall time.
+   twelve dump families, the four model-backed ML families, trained on the
+   card, and ``ml_kvcache_bf16``) x {gbdi, bdi, fr} at 1 MiB fitted on the
+   CPU's plain path, the model carried to the card, blobs, sizes and decodes
+   held to the CPU's; ``evaluate(suite="all")`` on the card at 16 MiB per
+   family with the card's fit (51 cells, all verified, the table with
+   per-kind geomeans and the CSV lines); the 15 sweep configs (static and
+   adaptive4) over ``605.mcf_s`` and ``ml_kvcache_bf16`` at 1 MiB, card
+   blobs against the CPU's on carried tables, then the sweep's rows; the
+   throughput rows of gbdi, bdi and fr at 16 MiB over the reference's five
+   families; the launch counters of encode and decode set to 0 before the
+   phase and read after, and the phase's wall time;
+9. real dumps (:func:`dump_suite`): deepseek-7b at its published width with
+   its depth cut to 2 layers is initialised on the card; the ingestion
+   corpus of ``tests/ingest_corpus.py`` goes through the port's ingest CLI,
+   beside a capture of this process (256 MiB at most) and a
+   ``capture_pytree`` of that model's 2.49 GB of bf16 parameters sampled to
+   256 MiB; ``evaluate(suite="dump")`` on the card at 16 MiB a family over
+   gbdi, bdi and fr, every cell verified, then every dump family held to the
+   CPU at 1 MiB on carried models; launches counted;
+10. the model-backed ML families (:func:`ml_families`): the reduced model
+   from one CPU init trained on the card and on the CPU (gradients at cosine
+   >= 0.99, each family's ratio within 2 %); then the full-width model: one
+   ``TokenPipeline`` batch (4 x 32), loss + backward and two AdamW steps,
+   each timed, the four families at 256 MiB x {gbdi, bdi, fr} (verified,
+   ratio, GiB/s), and three greedy decode steps through ``prefill`` and
+   ``decode_step``; launches counted.
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -74,6 +93,13 @@ STREAM_BYTES = 256 << 20
 #: of the full suite (4x the 4 MiB of benchmarks/bench_compression.py)
 CHECK_BYTES = 1 << 20
 SUITE_BYTES = 16 << 20
+#: phases 9-10: the cap of a process capture, the sample of a parameter-tree
+#: capture and the size of the full-width model's family streams (the codec
+#: path's 256 MiB)
+CAPTURE_BYTES = 256 << 20
+#: phases 9-10: deepseek-7b at its published width, depth cut to two layers
+#: (1.244e9 parameters, 2.49 GB in bf16)
+FULL_ARCH, FULL_LAYERS = "deepseek-7b", 2
 CHUNK_PAGES = 4096
 TIMING_REPEATS = 10
 GOLDEN_CRCS = [3381184247, 1710504446, 3996448536]
@@ -151,6 +177,36 @@ def blob_diff(a: dict, b: dict) -> list[str]:
     return bad
 
 
+def hold_to_cpu(workloads: list, card, n_bytes: int, tag: str) -> None:
+    """Every workload x {gbdi, bdi, fr} fitted once on the CPU's plain path,
+    the model or table carried to ``card``: the card's blobs and sizes equal
+    the CPU's, and the card decodes its blob within the dropped words."""
+    from repro_torch.eval.codecs import default_codecs
+
+    cpu, on_card = default_codecs("cpu"), default_codecs(str(card))
+    for wl in workloads:
+        data = wl.generate(n_bytes, 0)
+        for cname in ("gbdi", "bdi", "fr"):
+            ref, dut = cpu.make(cname, wl.word_bits), on_card.make(cname, wl.word_bits)
+            words = ref.stream(data)
+            model = ref.fit(words)                 # the plain fit, carried to the card
+            pb = ref.encode(words, model)
+            kwords = dut.stream(data)
+            kb = dut.encode(kwords, model.to(card) if model is not None else None)
+            bad = blob_diff(pb, kb)
+            if bad:
+                raise AssertionError(f"[{tag}] {wl.name}/{cname}: card blob differs in {bad}")
+            if ref.size_bits(pb) != dut.size_bits(kb):
+                raise AssertionError(f"[{tag}] {wl.name}/{cname}: size {dut.size_bits(kb)} != "
+                                     f"{ref.size_bits(pb)}")
+            mism = int((dut.decode(kb) != kwords).sum())
+            if mism > dut.dropped_words(kb):
+                raise AssertionError(f"[{tag}] {wl.name}/{cname}: {mism} words differ after "
+                                     f"decode > {dut.dropped_words(kb)} dropped")
+        log(f"[{tag}] {wl.name}: gbdi, bdi, fr blobs and sizes equal the CPU's on the carried "
+            f"model ({n_bytes} B); decoded on the card within drops")
+
+
 def paper_suite(card, check_bytes: int = CHECK_BYTES, suite_bytes: int = SUITE_BYTES) -> list:
     """Phase 8, the paper's suite: (a) every family x {gbdi, bdi, fr} fitted
     once on the CPU's plain path and encoded on ``card`` and on the CPU with
@@ -165,30 +221,10 @@ def paper_suite(card, check_bytes: int = CHECK_BYTES, suite_bytes: int = SUITE_B
     from repro_torch.eval.codecs import FRCodec, default_codecs
     from repro_torch.eval.workloads import default_workloads
 
-    reg = default_workloads()
-    cpu, on_card = default_codecs("cpu"), default_codecs(str(card))
+    reg = default_workloads(device=str(card))
+    on_card = default_codecs(str(card))
     t0 = time.perf_counter()
-    for wl in reg:
-        data = wl.generate(check_bytes, 0)
-        for cname in ("gbdi", "bdi", "fr"):
-            ref, dut = cpu.make(cname, wl.word_bits), on_card.make(cname, wl.word_bits)
-            words = ref.stream(data)
-            model = ref.fit(words)                 # the plain fit, carried to the card
-            pb = ref.encode(words, model)
-            kwords = dut.stream(data)
-            kb = dut.encode(kwords, model.to(card) if model is not None else None)
-            bad = blob_diff(pb, kb)
-            if bad:
-                raise AssertionError(f"[8a] {wl.name}/{cname}: card blob differs in {bad}")
-            if ref.size_bits(pb) != dut.size_bits(kb):
-                raise AssertionError(f"[8a] {wl.name}/{cname}: size {dut.size_bits(kb)} != "
-                                     f"{ref.size_bits(pb)}")
-            mism = int((dut.decode(kb) != kwords).sum())
-            if mism > dut.dropped_words(kb):
-                raise AssertionError(f"[8a] {wl.name}/{cname}: {mism} words differ after decode "
-                                     f"> {dut.dropped_words(kb)} dropped")
-        log(f"[8a] {wl.name}: gbdi, bdi, fr blobs and sizes equal the CPU's on the carried "
-            f"model ({check_bytes} B); decoded on the card within drops")
+    hold_to_cpu(list(reg), card, check_bytes, "8a")
     log(f"[8a] {len(reg)} families x 3 codecs in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -228,6 +264,244 @@ def paper_suite(card, check_bytes: int = CHECK_BYTES, suite_bytes: int = SUITE_B
     log(eval_run.format_sweep_table(rows))
     log(f"[8c] sweep in {time.perf_counter() - t0:.1f} s")
     return cells
+
+
+def card_tag(card) -> str:
+    """The device's name and, for a card, its power limit, as each time's tag."""
+    import torch
+
+    from repro_torch.eval import run as eval_run
+
+    return (f"{eval_run.device_name(torch.device(card))}, {eval_run.power_limit()}"
+            if torch.device(card).type == "cuda" else str(card))
+
+
+def write_corpus(out: Path) -> list[Path]:
+    """The ingestion corpus of ``tests/ingest_corpus.py`` (an ELF64 core in
+    both byte orders, a ``.npz``, a raw ``.bin``, a pickled tree), plus a
+    bf16 ``.npy`` whose bits come from a torch bf16 tensor: the corpus's own
+    builder needs ``ml_dtypes``.  Saved as 2-byte void (``V2``), which is how
+    numpy reads a bf16 ``.npy`` written with ``ml_dtypes``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from ingest_corpus import build_bin, build_elf_core, build_npz, build_pytree_pickle
+
+    out.mkdir(parents=True, exist_ok=True)
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 96)) * 0.05)
+    bits = w.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    np.save(out / "weights_bf16.npy", bits.view(np.dtype("V2")))
+    return [build_elf_core(out / "mini_core.elf"),
+            build_elf_core(out / "mini_core_be.elf", endian="big"),
+            out / "weights_bf16.npy", build_npz(out / "columns.npz"),
+            build_bin(out / "counters.bin"), build_pytree_pickle(out / "params.pkl")]
+
+
+def dump_suite(card, model, dump_dir: Path, check_bytes: int = CHECK_BYTES,
+               suite_bytes: int = SUITE_BYTES, capture_bytes: int = CAPTURE_BYTES) -> list:
+    """Phase 9, real dumps: the corpus ingested by the port's CLI, a capture of
+    this process (``capture_bytes`` at most) and a ``capture_pytree`` of
+    ``model``'s parameters sampled to ``capture_bytes``, all saved as
+    containers in ``dump_dir``; ``evaluate(suite="dump")`` on ``card`` at
+    ``suite_bytes`` per family over gbdi, bdi and fr, every cell verified;
+    then every dump family held to the CPU at ``check_bytes`` on carried
+    models.  Returns the suite's cells."""
+    import numpy as np
+
+    from repro_torch.eval import ingest
+    from repro_torch.eval import run as eval_run
+    from repro_torch.eval.codecs import default_codecs
+    from repro_torch.eval.ingest.__main__ import main as ingest_main
+    from repro_torch.eval.workloads import default_workloads
+
+    t0 = time.perf_counter()
+    paths = write_corpus(dump_dir.parent / "corpus")
+    fams = ingest_main([*map(str, paths), "--dump-dir", str(dump_dir)])
+    log(f"[9] ingested {fams} in {time.perf_counter() - t0:.1f} s (host; {card_tag(card)})")
+    t0 = time.perf_counter()
+    proc = ingest.capture_process(os.getpid(), allow=True, max_bytes=capture_bytes,
+                                  name="chip_smoke_proc")
+    proc.save(dump_dir / f"{proc.name}.npz")
+    log(f"[9] capture_process(own pid): {proc.n_bytes} B in {len(proc.segments)} maps "
+        f"({proc.meta['skipped_maps']} skipped), saved in {time.perf_counter() - t0:.1f} s "
+        f"(host; {card_tag(card)})")
+    t0 = time.perf_counter()
+    full = ingest.capture_pytree(model.params(), "params_full")
+    words = ingest.sample_stream(full, capture_bytes, 0)
+    name = f"{model.cfg.arch_id}_{model.cfg.n_layers}l_params"
+    ingest.DumpImage(
+        name=name, segments=[ingest.Segment(name="sample", data=words.view(np.uint8),
+                                            note=f"pages of {len(full.segments)} leaves")],
+        word_bits=full.word_bits, source=f"capture_pytree({model.cfg.arch_id}, "
+        f"{model.cfg.n_layers} layers)", meta={**full.meta, "sampled_from": full.n_bytes},
+    ).save(dump_dir / f"{name}.npz")
+    log(f"[9] capture_pytree: {full.n_bytes} B in {len(full.segments)} leaves "
+        f"(word_bits {full.word_bits}) sampled to {words.nbytes} B, saved in "
+        f"{time.perf_counter() - t0:.1f} s (host; {card_tag(card)})")
+    del full, words
+
+    reg = default_workloads(str(dump_dir), device=str(card))
+    dumps = reg.select("dump")
+    t0 = time.perf_counter()
+    cells = eval_run.evaluate(reg, default_codecs(str(card)), suite="dump", codecs="gbdi,bdi,fr",
+                              n_bytes=suite_bytes, seed=0, repeats=3)
+    bad = [f"{c.workload}/{c.codec}: {c.error}" for c in cells if not c.verified]
+    if bad or len(cells) != 3 * len(dumps) or len(dumps) != len(paths) + 2:
+        raise AssertionError(f"[9] {len(dumps)} dump families, {len(cells)} cells, failed: {bad}")
+    log(f"[9] evaluate(suite='dump', codecs='gbdi,bdi,fr') at {suite_bytes} B per family: "
+        f"{len(cells)} cells verified in {time.perf_counter() - t0:.1f} s ({card_tag(card)})")
+    log(eval_run.format_table(cells))
+    for line in eval_run.csv_lines(cells):
+        log(line)
+    t0 = time.perf_counter()
+    hold_to_cpu(dumps, card, check_bytes, "9")
+    log(f"[9] {len(dumps)} dump families x 3 codecs held to the CPU in "
+        f"{time.perf_counter() - t0:.1f} s ({card_tag(card)})")
+    return cells
+
+
+def ml_families(card, model, stream_bytes: int = CAPTURE_BYTES, check_bytes: int = CHECK_BYTES,
+                decode_steps: int = 3) -> dict:
+    """Phase 10, the model-backed ML families: (a) the reduced deepseek-7b
+    from one CPU init carried to ``card``, trained there and on the CPU by
+    the families' recipe: every gradient leaf at cosine >= 0.99 (bf16 op
+    order differs), and each family's gbdi/bdi/fr ratio at ``check_bytes``
+    within 2 %; (b) ``model``
+    (full width): one ``TokenPipeline`` batch, loss + backward, two AdamW
+    steps, each timed; the four families at ``stream_bytes`` x gbdi/bdi/fr,
+    verified; ``decode_steps`` greedy steps through ``prefill`` and
+    ``decode_step``.  Returns the step times in ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.eval import run as eval_run
+    from repro_torch.eval.codecs import default_codecs
+    from repro_torch.eval.workloads import (MODEL_FAMILIES, default_workloads, ml_streams,
+                                            train_state)
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+
+    def sync() -> None:
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
+
+    # (a) the reduced model, one init, on the CPU and on the card
+    cfg = reduced(ARCHS["deepseek-7b"])
+    cpu_model = build_model(cfg, "cpu")
+    cpu_model.init(torch.Generator().manual_seed(SEED))
+    card_model = build_model(cfg, card)
+    card_model.set_params(interop.params_from_numpy(interop.params_to_numpy(cpu_model.params()),
+                                                    card))
+    states = {"cpu": train_state(cpu_model, 0), "card": train_state(card_model, 0)}
+    for (path, a), b in zip(tree_flatten_with_path(states["cpu"][1]),
+                            tree_leaves(states["card"][1])):
+        a, b = a.float(), b.float().cpu()
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        if not cos >= 0.99:
+            raise AssertionError(f"[10a] gradient {path}: card vs CPU cosine {cos}")
+    wl_reg = default_workloads("/nonexistent", device="cpu")
+    cells = {}
+    for dev_name, (params, grads, state) in states.items():
+        streams = ml_streams(params, grads, state, check_bytes)
+        codecs = default_codecs("cpu" if dev_name == "cpu" else str(card))
+        cells[dev_name] = [
+            eval_run.evaluate_cell(wl_reg.get(n), codecs.make(c, wl_reg.get(n).word_bits),
+                                   streams[n], repeats=1)
+            for n in MODEL_FAMILIES for c in ("gbdi", "bdi", "fr")]
+    for a, b in zip(cells["cpu"], cells["card"]):
+        if not (a.verified and b.verified
+                and abs(b.compression_ratio - a.compression_ratio) <= 0.02 * a.compression_ratio):
+            raise AssertionError(f"[10a] {a.workload}/{a.codec}: card CR {b.compression_ratio} vs "
+                                 f"CPU {a.compression_ratio} ({b.error or a.error})")
+        log(f"[10a] {a.workload}/{a.codec}: CR card {b.compression_ratio:.4f}, CPU "
+            f"{a.compression_ratio:.4f} ({check_bytes} B; one init carried, trained on each)")
+    log("[10a] reduced deepseek-7b trained on the card and on the CPU from one init: every "
+        "gradient leaf at cosine >= 0.99, every family's ratio within 2 %")
+    del cpu_model, card_model, states
+
+    # (b) full width
+    times = {}
+
+    def timed(label: str, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    mcfg = model.cfg
+    pipe = TokenPipeline(PipelineConfig(mcfg.vocab_size, 32, 4, seed=0))
+    batch = {"tokens": pipe.batch_at(0)["tokens"]}
+    if card.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(card)
+    loss = timed("loss_backward", lambda: _loss_backward(model, batch))
+    if not np.isfinite(loss):
+        raise AssertionError(f"[10b] loss {loss}")
+    params = model.params()
+    grads = tree_map(lambda p: p.grad, params)
+    state = adamw.init_state(params)
+    acfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    for i in range(2):
+        params, state, metrics = timed(f"adamw_step{i + 1}",
+                                       lambda: adamw.apply_updates(acfg, params, grads, state))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated(card) if card.type == "cuda" else 0
+    log(f"[10b] {mcfg.arch_id} at full width, {mcfg.n_layers} layers ({n_params} parameters, "
+        f"{mcfg.dtype}): loss {loss:.4f}; loss + backward {times['loss_backward']:.1f} ms, AdamW "
+        f"steps {times['adamw_step1']:.1f} / {times['adamw_step2']:.1f} ms (grad norm "
+        f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3g}); peak memory "
+        f"{peak} B (host clock, synchronised; {card_tag(card)})")
+
+    t0 = time.perf_counter()
+    streams = ml_streams(params, grads, state, stream_bytes)
+    log(f"[10b] the four families' streams at {stream_bytes} B in "
+        f"{time.perf_counter() - t0:.1f} s ({card_tag(card)})")
+    codecs = default_codecs(str(card))
+    for n in MODEL_FAMILIES:
+        wl = wl_reg.get(n)
+        for cname in ("gbdi", "bdi", "fr"):
+            cell = eval_run.evaluate_cell(wl, codecs.make(cname, wl.word_bits), streams[n],
+                                          repeats=1)
+            if not cell.verified:
+                raise AssertionError(f"[10b] {n}/{cname}: {cell.error}")
+            gib = cell.n_bytes / (1 << 30)
+            log(f"[10b] {n}/{cname} ({cell.word_bits}-bit words, {cell.n_bytes} B): CR "
+                f"{cell.compression_ratio:.4f}, bits/word {cell.bits_per_word:.3f}, encode "
+                f"{gib / cell.encode_s:.3f} GiB/s, decode {gib / cell.decode_s:.3f} GiB/s, "
+                f"fit {cell.fit_s:.2f} s, exact {cell.exact_frac:.5f} ({cell.device}, "
+                f"{cell.power_limit})")
+        streams.pop(n)
+
+    model.set_params(params)              # the trained weights serve the decode
+    del grads, state
+    cache = model.init_cache(4, 32 + decode_steps)
+    cache, logits = timed("prefill", lambda: model.prefill(batch, cache))
+    tok = logits[:, -1].float().argmax(-1)
+    tokens = []
+    for i in range(decode_steps):
+        logits, cache = timed(f"decode{i}", lambda: model.decode_step(
+            {"tokens": tok[:, None]}, cache, 32 + i))
+        if not (logits.shape == (4, 1, mcfg.vocab_size) and logits.float().isfinite().all()):
+            raise AssertionError(f"[10b] decode step {i}: logits {tuple(logits.shape)}")
+        tok = logits[:, 0].float().argmax(-1)
+        tokens.append(tok.tolist())
+    log(f"[10b] prefill of 4 x 32 tokens {times['prefill']:.1f} ms; greedy decode "
+        + ", ".join(f"{times[f'decode{i}']:.1f}" for i in range(decode_steps))
+        + f" ms a step (host clock, synchronised; {card_tag(card)}); tokens {tokens}")
+    return times
+
+
+def _loss_backward(model, batch) -> float:
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(batch)[0]
+    loss.backward()
+    return float(loss.detach())
 
 
 def main() -> int:
@@ -717,6 +991,41 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"{kname} was never launched in the suite phase")
 
+    # -- phase 9: real dumps -------------------------------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    t9 = time.perf_counter()
+    full_cfg = dataclasses.replace(get_config(FULL_ARCH), n_layers=FULL_LAYERS)
+    model = build_model(full_cfg, dev)
+    sync()
+    t0 = time.perf_counter()
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    log(f"[9] {FULL_ARCH} at full width (d_model {full_cfg.d_model}, {full_cfg.n_heads} heads, "
+        f"d_ff {full_cfg.d_ff}, vocab {full_cfg.vocab_size}), depth cut to {FULL_LAYERS} layers: "
+        f"{sum(t.numel() for t in model.parameters())} parameters initialised on the card in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({name}, {smi.split(',')[-1].strip()})")
+    enc_mod.launch_count = dec_mod.launch_count = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dump_suite(dev, model, Path(tmp) / "dumps")
+    dump_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    log(f"[9] dump-phase launches: {dump_launches}; phase wall time "
+        f"{time.perf_counter() - t9:.1f} s ({smi})")
+
+    # -- phase 10: the model-backed ML families ------------------------------------
+    t10 = time.perf_counter()
+    enc_mod.launch_count = dec_mod.launch_count = 0
+    ml_families(dev, model)
+    ml_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    log(f"[10] ML-phase launches: {ml_launches}; phase wall time "
+        f"{time.perf_counter() - t10:.1f} s ({smi})")
+    for kname in launches:
+        if dump_launches[kname] <= 0 or ml_launches[kname] <= 0:
+            raise AssertionError(f"{kname} was never launched in phase 9 or 10")
+    del model
+    torch.cuda.empty_cache()
+
     replaces = {"gbdi_encode": "src/repro/kernels/gbdi_encode.py:292",
                 "gbdi_decode": "src/repro/kernels/gbdi_decode.py:148",
                 "gbdi_paged_attn": "src/repro/kernels/gbdi_paged_attn.py:160"}
@@ -727,7 +1036,8 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": replaces[kname],
-            "launches": launches[kname] + serve_launches[kname] + suite_launches[kname],
+            "launches": (launches[kname] + serve_launches[kname] + suite_launches[kname]
+                         + dump_launches[kname] + ml_launches[kname]),
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })

@@ -6,6 +6,7 @@
   PYTHONPATH=src python -m repro_torch.eval.run --sweep --suite 605.mcf_s,ml_kvcache_bf16
   PYTHONPATH=src python -m repro_torch.eval.run --throughput --json throughput.json
   PYTHONPATH=src python -m repro_torch.eval.run --device cpu --suite column --bytes 262144
+  PYTHONPATH=src python -m repro_torch.eval.run --suite dump --dump-dir experiments/dumps
 
 PyTorch counterpart of :mod:`repro.eval.run`.  Per cell the runner uploads
 the stream once (set-up), fits, encodes, decodes, verifies the roundtrip on
@@ -340,8 +341,15 @@ def format_sweep_table(rows: list[dict]) -> str:
 # throughput (warmed, median-of-K GiB/s per codec x workload family)
 # ---------------------------------------------------------------------------
 
-#: one representative stream per workload kind the port registers
-THROUGHPUT_WORKLOADS = ("605.mcf_s", "java_svm", "col_int_keys", "ml_kvcache_bf16")
+#: one representative stream per workload family, plus both bf16 ML
+#: distributions the serving and training paths move (the reference's set)
+THROUGHPUT_WORKLOADS = (
+    "605.mcf_s",          # C
+    "java_svm",           # Java
+    "col_int_keys",       # Column
+    "ml_kvcache_bf16",    # ML (serving KV distribution)
+    "ml_grads_bf16",      # ML (gradient-transport distribution)
+)
 THROUGHPUT_CODECS = "gbdi,bdi,fr"
 
 
@@ -570,8 +578,11 @@ def main(argv: list[str] | None = None) -> list[EvalCell]:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--suite", default="all",
-                    help="'all', or a comma list of kinds (c,java,column,ml) and/or "
-                         "workload names")
+                    help="'all', or a comma list of kinds (c,java,column,ml,dump) and/or "
+                         "workload names (incl. dump:<name>)")
+    ap.add_argument("--dump-dir", default=None,
+                    help="directory of ingested dump containers to register as "
+                         "dump:<name> families (default: $REPRO_DUMP_DIR or experiments/dumps)")
     ap.add_argument("--codec", default=None,
                     help="comma list from: gbdi, bdi, fr (default: all three; the sweep "
                          "runs fr only)")
@@ -594,7 +605,7 @@ def main(argv: list[str] | None = None) -> list[EvalCell]:
     ap.add_argument("--json", default="", help="write a BENCH_*.json-style artifact here")
     args = ap.parse_args(argv)
 
-    registry = default_workloads()
+    registry = default_workloads(args.dump_dir, device=args.device)
     codecs = default_codecs(args.device)
     if args.throughput:
         n_bytes = args.n_bytes if args.n_bytes is not None else 2 << 20

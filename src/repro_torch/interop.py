@@ -10,7 +10,11 @@ plain fields, and gets the port's objects back:
 * :func:`blob_from_numpy` / :func:`blob_to_numpy` — blob dicts both ways;
 * :func:`kv_spec_from_fields` — the reference ``KVSpec``'s fields (its
   ``fr`` as a field mapping) -> the port's :class:`KVSpec`;
-* :func:`cache_from_numpy` — a reference KV cache tree -> the port's cache.
+* :func:`cache_from_numpy` — a reference KV cache tree -> the port's cache;
+* :func:`params_from_numpy` / :func:`params_to_numpy` — a model's parameter
+  tree (nested dicts and lists) both ways, for :meth:`Model.set_params`;
+* :func:`state_from_numpy` — the reference's AdamW state (``m``, ``v``,
+  ``step``) -> the port's.
 
 With these, one package can encode and the other decode, and both can
 attend over the same cache.  Like every entry point of the port, the
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.core.format import BaseTable
 from repro_torch.core.gbdi_fr import FRConfig
 from repro_torch.serving.kv_cache import Cache, KVSpec
@@ -105,6 +110,44 @@ def cache_from_numpy(tree: Mapping[str, Any],
     return cache
 
 
+def _leaf_from_numpy(x: Any, device: torch.device) -> torch.Tensor:
+    """One parameter leaf: bf16 (an ``ml_dtypes`` array, or its bit pattern
+    as uint16: no model holds a uint16 parameter) -> a bf16 tensor; any
+    other dtype keeps its own."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.uint16:
+        return _bf16_from_numpy(arr.view(np.uint16), device=device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def params_from_numpy(tree: Any, device: str | torch.device | None = None) -> Any:
+    """A reference parameter tree with numpy leaves -> the same tree of
+    tensors on ``device``, ready for :meth:`repro_torch.models.api.Model.set_params`."""
+    device = resolve_device(device)
+    return tree_map(lambda x: _leaf_from_numpy(x, device), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """A tree of tensors -> numpy leaves; bf16 tensors as their uint16 bit
+    patterns (numpy has no bf16 without ``ml_dtypes``)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return tree_map(leaf, tree)
+
+
+def state_from_numpy(state: Mapping[str, Any],
+                     device: str | torch.device | None = None) -> dict:
+    """The reference's AdamW state (``m``/``v`` float32 trees, ``step``) as
+    numpy -> the port's (:mod:`repro_torch.optim.adamw`)."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(state["m"], device), "v": params_from_numpy(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device)}
+
+
 __all__ = ["CONFIG_FIELDS", "blob_from_numpy", "blob_to_numpy",
            "cache_from_numpy", "config_from_fields", "kv_spec_from_fields",
+           "params_from_numpy", "params_to_numpy", "state_from_numpy",
            "table_from_numpy"]

@@ -126,20 +126,21 @@ ENTRY_SCRIPTS = ["examples/quickstart_torch.py", "benchmarks/bench_compression_t
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """The port's modules, its example and benchmark scripts and chip_smoke.py import neither jax
-    nor repro, in their source or when loaded."""
+    """The port's modules, its example and benchmark scripts and chip_smoke.py import neither
+    jax, nor repro, nor ml_dtypes (the card's machine has none of them), in their source or when
+    every module of the package is loaded."""
     files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py",
              *(ROOT / d for d in ENTRY_SCRIPTS)]
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.M)
     offenders = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
-    code = ("import sys, runpy, repro_torch.eval.run, repro_torch.interop, "
-            "repro_torch.kernels.ops, repro_torch.serving.kv_cache, repro_torch.serving.engine, "
-            "repro_torch.kernels.gbdi_paged_attn, repro_torch.core.bdi, repro_torch.core.bitpack, "
-            "repro_torch.core.gbdi, repro_torch.data.workloads, repro_torch.eval.codecs, "
-            "repro_torch.eval.workloads; "
+    code = ("import sys, runpy, importlib, pkgutil, repro_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert {'repro_torch.eval.ingest.capture', 'repro_torch.models.api', "
+            "'repro_torch.optim.adamw', 'repro_torch.configs.deepseek_7b'} <= set(mods), mods; "
             f"[runpy.run_path(p) for p in {[str(ROOT / d) for d in ENTRY_SCRIPTS]!r}]; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})

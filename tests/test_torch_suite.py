@@ -6,9 +6,11 @@ to the reference in ``test_torch_host_codecs.py``).
 Streams are generated from a seed by both packages (byte-identical); each
 side fits its own model on the CPU, which the port reproduces exactly, so
 compression ratios, bits per word and verification must be equal.  Suites
-are named explicitly: the reference's ``all`` would initialise a model for
-its ML families.  The JAX reference is imported inside the ``ref`` fixture,
-so the card tests also run where JAX is absent.
+are named explicitly and leave out the four model-backed ML families, whose
+streams come from each package's own model initialisation
+(``test_torch_models.py`` holds those on carried weights).  The JAX
+reference is imported inside the ``ref`` fixture, so the card tests also
+run where JAX is absent.
 """
 import importlib.util
 import json
@@ -22,11 +24,12 @@ import torch
 from repro_torch.eval import codecs as t_codecs
 from repro_torch.eval import run as t_run
 from repro_torch.eval.registry import CodecRegistry
+from repro_torch.eval.workloads import MODEL_FAMILIES
 from repro_torch.eval.workloads import default_workloads as t_workloads
 
 ROOT = Path(__file__).resolve().parent.parent
 N_BYTES = 64 << 10
-FAMILIES = t_workloads().names()
+FAMILIES = [n for n in t_workloads("/no/such/dir").names() if n not in MODEL_FAMILIES]
 SUITE = ",".join(FAMILIES)
 
 
@@ -69,11 +72,12 @@ def cuda_device():
 
 def test_port_registers_every_dump_family(ref):
     assert FAMILIES == list(ref.dumps.WORKLOADS) + ["ml_kvcache_bf16"]
-    reg = t_workloads()
+    reg = t_workloads("/no/such/dir")
     for name, (kind, _fn) in ref.dumps.WORKLOADS.items():
         assert reg.get(name).kind == kind and reg.get(name).word_bits == 32
-    assert len(reg.select("all")) == 13 and [w.name for w in reg.select("ml")] == [
-        "ml_kvcache_bf16"]
+    assert len(reg.select("all")) == 17 and [w.name for w in reg.select("ml")] == [
+        *MODEL_FAMILIES, "ml_kvcache_bf16"]
+    assert reg.names() == ref.workloads("/no/such/dir").names()
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -212,10 +216,10 @@ def test_suite_on_card(cuda_device):
     from repro_torch.kernels import gbdi_decode, gbdi_encode
 
     enc0, dec0 = gbdi_encode.launch_count, gbdi_decode.launch_count
-    cells = t_run.evaluate(t_workloads(), t_codecs.default_codecs(), codecs="gbdi,bdi,fr",
-                           n_bytes=1 << 20, repeats=1)
-    cpu = t_run.evaluate(t_workloads(), t_codecs.default_codecs("cpu"), codecs="gbdi,bdi,fr",
-                         n_bytes=1 << 20, repeats=1)
+    cells = t_run.evaluate(t_workloads(), t_codecs.default_codecs(), suite=SUITE,
+                           codecs="gbdi,bdi,fr", n_bytes=1 << 20, repeats=1)
+    cpu = t_run.evaluate(t_workloads(), t_codecs.default_codecs("cpu"), suite=SUITE,
+                         codecs="gbdi,bdi,fr", n_bytes=1 << 20, repeats=1)
     assert len(cells) == 39 and all(c.verified for c in cells)
     assert all(c.device.startswith("NVIDIA") and c.power_limit for c in cells)
     assert gbdi_encode.launch_count > enc0 and gbdi_decode.launch_count > dec0
