@@ -71,7 +71,19 @@ Phases, in order; any failure exits non-zero before the final line:
    ``TokenPipeline`` batch (4 x 32), loss + backward and two AdamW steps,
    each timed, the four families at 256 MiB x {gbdi, bdi, fr} (verified,
    ratio, GiB/s), and three greedy decode steps through ``prefill`` and
-   ``decode_step``; launches counted.
+   ``decode_step``; launches counted;
+11. serving: (a) the scheduler suite's narrow float32 model from one CPU
+   init carried to the card: the card's ``Engine`` gives the CPU's greedy
+   tokens for a batched, a mid-decode and a mixed-length admit, and 30
+   seeded submit/park/step ``Scheduler`` programs leave every request
+   token-equal to its solo run on the card (:func:`serving_parity`); (b)
+   the phase-9 full-width model behind ``Engine(batch_slots=8,
+   max_len=128)`` and a ``Scheduler`` per accounting at a budget of 6 raw
+   sequences, 10 requests filling the cache plus a late priority-1 one:
+   peak resident 6 raw against 7 compressed, tokens/s, TTFT, ms a tick
+   (:func:`serving_full_width`); (c) ``decode_microbench_torch --quick``
+   and ``bench_kvcache_torch`` on the card (:func:`serving_scripts`), which
+   launch kernels A, B and C; launches counted over the phase.
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
@@ -495,6 +507,246 @@ def ml_families(card, model, stream_bytes: int = CAPTURE_BYTES, check_bytes: int
         + ", ".join(f"{times[f'decode{i}']:.1f}" for i in range(decode_steps))
         + f" ms a step (host clock, synchronised; {card_tag(card)}); tokens {tokens}")
     return times
+
+
+def _load_script(rel: str):
+    """A script of the checkout (``benchmarks/``, ``examples/``) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(rel).stem,
+                                                  Path(__file__).resolve().parent / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: phase 11 (a): the max_new choices of the reference's scheduler suite
+#: (tests/test_serving_scheduler.py; 14 overruns its cache ceiling of 16)
+SERVE_MAX_NEW = (1, 2, 3, 6, 14)
+#: phase 11 (a): seeded scheduler programs held to solo parity on the card
+SERVE_PROGRAMS = 30
+#: phase 11 (b): examples/serve_demo.py's shape with max_len cut from 512 to
+#: 128; each request's prompt plus max_new fills the cache
+SERVE_MAX_LEN, SERVE_PROMPT, SERVE_REQUESTS = 128, 12, 10
+
+
+def serving_parity(card) -> int:
+    """Phase 11 (a): the narrow float32 deepseek-7b of the scheduler suite,
+    initialised once on the CPU and carried to ``card``.  The card's
+    ``Engine`` gives the CPU's greedy tokens for a batched admit, a
+    mid-decode admit and a mixed-length admit; then ``SERVE_PROGRAMS`` seeded
+    submit/park/step programs drive a ``Scheduler`` on ``card`` to drain,
+    every request token-equal to its solo single-slot run on ``card`` and
+    ``resident_bytes`` back at 0.  Returns the requests checked."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.scheduler import RequestState, Scheduler
+
+    cfg = dataclasses.replace(reduced(ARCHS["deepseek-7b"]), dtype="float32", d_model=64,
+                              n_heads=2, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128)
+    cpu_model = build_model(cfg, "cpu")
+    cpu_model.init(torch.Generator().manual_seed(0))
+    card_model = build_model(cfg, card)
+    card_model.set_params(interop.params_from_numpy(interop.params_to_numpy(cpu_model.params()),
+                                                    card))
+    rng = np.random.default_rng(4)
+    p8, p6, p5 = (rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (8, 6, 5))
+
+    def cases(model):
+        """(label, every request's tokens) of the three admit shapes."""
+        out = []
+        eng = Engine(model, batch_slots=3, max_len=64)
+        reqs = [Request(i, p, max_new=5) for i, p in enumerate((p8, p8[::-1].copy(), p6))]
+        eng.admit(reqs)
+        while eng.tick():
+            pass
+        out.append(("batched admit", [r.out for r in reqs]))
+        eng = Engine(model, batch_slots=2, max_len=64)
+        r1, r2 = Request(0, p8.copy(), max_new=6), Request(1, p6.copy(), max_new=4)
+        eng.admit([r1])
+        eng.tick()
+        eng.tick()
+        eng.admit([r2])
+        while eng.tick():
+            pass
+        out.append(("mid-decode admit", [r1.out, r2.out]))
+        eng = Engine(model, batch_slots=2, max_len=64)
+        reqs = [Request(0, p8.copy(), max_new=6), Request(1, p5.copy(), max_new=6)]
+        eng.admit(reqs)
+        while eng.tick():
+            pass
+        out.append(("mixed-length admit", [r.out for r in reqs]))
+        return out
+
+    for (label, want), (_, got) in zip(cases(cpu_model), cases(card_model)):
+        if got != want:
+            raise AssertionError(f"[11a] {label}: card tokens {got} != CPU tokens {want}")
+        log(f"[11a] {label}: card tokens equal the CPU's on the carried float32 model {got}")
+
+    max_len = 16
+    pool = np.random.default_rng(1234)
+    prompts = [pool.integers(0, 128, n).astype(np.int32) for n in (2, 3, 4, 2, 3, 4)]
+    solo_cache: dict[tuple[int, int], list[int]] = {}
+
+    def solo(pi: int, mn: int) -> list[int]:
+        if (pi, mn) not in solo_cache:
+            eng = Engine(card_model, batch_slots=1, max_len=max_len)
+            req = Request(0, prompts[pi].copy(), max_new=mn)
+            eng.admit([req])
+            while eng.tick():
+                pass
+            solo_cache[(pi, mn)] = req.out
+        return solo_cache[(pi, mn)]
+
+    per_seq = card_model.n_kv_layers * card_model.kv_cache_spec(max_len).compressed_bytes(1)
+    checked = evictions = 0
+    for seed in range(SERVE_PROGRAMS):
+        rng = np.random.default_rng(seed)
+        slots, budget_seqs = int(rng.integers(1, 4)), int(rng.integers(1, 4))
+        sched = Scheduler(Engine(card_model, batch_slots=slots, max_len=max_len),
+                          byte_budget=budget_seqs * per_seq)
+        n_req = int(rng.integers(2, 6))
+        pending = [(int(rng.integers(0, len(prompts))),
+                    SERVE_MAX_NEW[int(rng.integers(0, len(SERVE_MAX_NEW)))],
+                    int(rng.integers(0, 3))) for _ in range(n_req)]
+        submitted = []
+        for _ in range(3 * n_req):
+            op = int(rng.integers(0, 4))
+            if op == 0 and pending:
+                pi, mn, pr = pending.pop()
+                submitted.append((pi, mn, sched.submit(prompts[pi], max_new=mn, priority=pr)))
+            elif op == 1:
+                live = [r for _, _, r in submitted if r.state is RequestState.DECODING]
+                if live:
+                    sched.park(live[int(rng.integers(0, len(live)))].rid)
+            else:
+                sched.step()
+        for pi, mn, pr in pending:
+            submitted.append((pi, mn, sched.submit(prompts[pi], max_new=mn, priority=pr)))
+        sched.run(max_ticks=2000)
+        for pi, mn, req in submitted:
+            if req.state is not RequestState.DONE or req.out != solo(pi, mn):
+                raise AssertionError(f"[11a] program {seed}, request {req.rid}: {req.state.name} "
+                                     f"{req.out} != solo {solo(pi, mn)}")
+        if sched.resident_bytes != 0:
+            raise AssertionError(f"[11a] program {seed}: resident_bytes {sched.resident_bytes}")
+        checked += len(submitted)
+        evictions += sched.counters["evicted"]
+    log(f"[11a] {SERVE_PROGRAMS} seeded scheduler programs on the card: {checked} requests, each "
+        f"token-equal to its solo single-slot run; {evictions} evictions resumed; "
+        "resident_bytes drained to 0 each time")
+    return checked
+
+
+def serving_full_width(card, model) -> dict:
+    """Phase 11 (b): ``model`` (deepseek-7b at full width, bf16) behind
+    ``Engine(batch_slots=8, max_len=SERVE_MAX_LEN)`` and a ``Scheduler``
+    under each accounting, with a budget of 6 raw sequences:
+    ``SERVE_REQUESTS`` requests of a ``SERVE_PROMPT``-token prompt whose
+    final context fills the cache, then after 3 steps one priority-1
+    request; drained.  Every request gets its ``max_new`` tokens, the
+    priority-1 request is never evicted, ``resident_bytes`` drains to 0.
+    A throwaway engine first runs one prefill and one tick at these shapes,
+    so neither timed run pays the first call.  Returns per accounting the
+    counters, tokens/s, TTFT, ms per tick and wall time (host clock; every
+    tick ends with its tokens on the host)."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.scheduler import Scheduler
+
+    spec = model.kv_cache_spec(SERVE_MAX_LEN)
+    raw_seq = model.n_kv_layers * spec.raw_bytes(1)
+    budget = 6 * raw_seq
+    max_new = SERVE_MAX_LEN - SERVE_PROMPT
+    rng = np.random.default_rng(SEED)
+    vocab = model.cfg.vocab_size
+    warm = Engine(model, batch_slots=8, max_len=SERVE_MAX_LEN)
+    warm.admit([Request(0, np.arange(SERVE_PROMPT, dtype=np.int32), max_new=2)])
+    warm.tick()
+    del warm
+    out = {}
+    for accounting in ("raw", "compressed"):
+        eng = Engine(model, batch_slots=8, max_len=SERVE_MAX_LEN)
+        sched = Scheduler(eng, byte_budget=budget, accounting=accounting)
+        t0 = time.perf_counter()
+        reqs = [sched.submit(rng.integers(0, vocab, SERVE_PROMPT).astype(np.int32),
+                             max_new=max_new) for _ in range(SERVE_REQUESTS)]
+        for _ in range(3):
+            sched.step()
+        vip = sched.submit(rng.integers(0, vocab, SERVE_PROMPT).astype(np.int32),
+                           max_new=max_new, priority=1)
+        sched.run()
+        wall = time.perf_counter() - t0
+        c = dict(sched.counters)
+        allr = reqs + [vip]
+        if not all(len(r.out) == max_new and 0 <= min(r.out) and max(r.out) < vocab
+                   for r in allr):
+            raise AssertionError(f"[11b] {accounting}: a request did not get {max_new} tokens "
+                                 "in the vocabulary")
+        if vip.evictions or sched.resident_bytes:
+            raise AssertionError(f"[11b] {accounting}: priority-1 evictions {vip.evictions}, "
+                                 f"resident_bytes {sched.resident_bytes}")
+        ttft = sorted(r.first_token_t - r.submit_t for r in allr)
+        out[accounting] = {
+            "bytes_per_seq": sched.bytes_per_seq, "reserve": reqs[0]._reserved,
+            "peak_resident": c["peak_resident"], "evicted": c["evicted"],
+            "resumed": c["resumed"], "tokens": c["tokens"], "ticks": sched.ticks,
+            "wall_s": wall, "tokens_s": c["tokens"] / wall,
+            "ttft_ms_median": statistics.median(ttft) * 1e3, "ttft_ms_max": ttft[-1] * 1e3,
+            "ms_per_tick": wall / sched.ticks * 1e3,
+            "vip_wait_ticks": vip.admit_tick - vip.submit_tick}
+        o = out[accounting]
+        log(f"[11b] {accounting:>10}: budget {budget} B (6 raw sequences), a request reserves "
+            f"{o['reserve']} B -> peak resident {o['peak_resident']}, evictions {o['evicted']}, "
+            f"resumes {o['resumed']}, {o['tokens']} tokens in {o['ticks']} ticks, "
+            f"{o['wall_s']:.3f} s: {o['tokens_s']:.1f} tokens/s, TTFT median "
+            f"{o['ttft_ms_median']:.2f} ms, max {o['ttft_ms_max']:.2f} ms, "
+            f"{o['ms_per_tick']:.3f} ms a tick; priority-1 request waited {o['vip_wait_ticks']} "
+            f"ticks (host clock; {card_tag(card)})")
+    return out
+
+
+def serving_scripts(card) -> None:
+    """Phase 11 (c): the two ``KVSession`` benchmark scripts on ``card``,
+    for their kernel launches and the attention check; their times at the
+    reference's toy sizes are launch-bound and not reported.
+    ``decode_microbench_torch --quick``: ``resident`` flushes run the encode
+    and decode kernels, ``full`` (the oracle backend) the decode kernel over
+    every page each attend.  ``bench_kvcache_torch``: 96 single-token pages
+    through the encode kernel, then ``auto`` on a cache with no resident
+    region, which is the paged-attention kernel; its output is held to the
+    same run on the CPU (plain versions), with the base table fitted on the
+    card carried over so both compress the same pages, within bf16
+    tolerance."""
+    import torch
+
+    art = _load_script("benchmarks/decode_microbench_torch.py").main(
+        ["--quick", "--json", ""])
+    if not (len(art["rows"]) == 4 and all(0 < r["us_best"] <= r["us_per_token"]
+                                          for r in art["rows"])):
+        raise AssertionError(f"[11c] decode_microbench rows {art['rows']}")
+    log(f"[11c] decode_microbench_torch --quick ({art['device']}, {art['power_limit']}): "
+        f"{len(art['rows'])} rows (contexts x resident/full)")
+    kv = _load_script("benchmarks/bench_kvcache_torch.py")
+    got = kv.main([])
+    cpu = kv.run("cpu", bases=got["bases"].to("cpu"))
+    diff = float((got["out"].float().cpu() - cpu["out"].float()).abs().max())
+    torch.testing.assert_close(got["out"].float().cpu(), cpu["out"].float(), rtol=1.6e-2,
+                               atol=1e-2)
+    if not got["max_rel"] < 0.01:
+        raise AssertionError(f"[11c] bench_kvcache attention error {got['max_rel']} (CPU "
+                             f"{cpu['max_rel']})")
+    log(f"[11c] bench_kvcache_torch: attention error on the card max_abs {got['max_abs']:.4f}, "
+        f"max_rel {got['max_rel']:.4f} (CPU plain {cpu['max_abs']:.4f}, {cpu['max_rel']:.4f}); "
+        f"card vs CPU output max abs diff {diff:.4g} (bf16 tolerance rtol 1.6e-2, atol 1e-2)")
 
 
 def _loss_backward(model, batch) -> float:
@@ -1023,6 +1275,28 @@ def main() -> int:
     for kname in launches:
         if dump_launches[kname] <= 0 or ml_launches[kname] <= 0:
             raise AssertionError(f"{kname} was never launched in phase 9 or 10")
+
+    # -- phase 11: serving on the card -------------------------------------------
+    t11 = time.perf_counter()
+    enc_mod.launch_count = dec_mod.launch_count = pa_mod.launch_count = 0
+    serving_parity(dev)
+    log(f"[11a] in {time.perf_counter() - t11:.1f} s")
+    t0 = time.perf_counter()
+    full = serving_full_width(dev, model)
+    if (full["raw"]["peak_resident"], full["compressed"]["peak_resident"]) != (6, 7):
+        raise AssertionError(f"[11b] peak resident raw {full['raw']['peak_resident']}, "
+                             f"compressed {full['compressed']['peak_resident']}; want 6 and 7")
+    log(f"[11b] peak resident at one budget: raw {full['raw']['peak_resident']}, compressed "
+        f"{full['compressed']['peak_resident']}; in {time.perf_counter() - t0:.1f} s ({smi})")
+    t0 = time.perf_counter()
+    serving_scripts(dev)
+    serving_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count,
+                        "gbdi_paged_attn": pa_mod.launch_count}
+    log(f"[11c] in {time.perf_counter() - t0:.1f} s; serving-phase launches: "
+        f"{serving_launches}; phase wall time {time.perf_counter() - t11:.1f} s ({smi})")
+    for kname, count in serving_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{kname} was never launched in phase 11")
     del model
     torch.cuda.empty_cache()
 
@@ -1037,14 +1311,15 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": replaces[kname],
             "launches": (launches[kname] + serve_launches[kname] + suite_launches[kname]
-                         + dump_launches[kname] + ml_launches[kname]),
+                         + dump_launches[kname] + ml_launches[kname] + serving_launches[kname]),
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })
     kernels.append({
         "name": "gbdi_paged_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbdi_paged_attn.cu",
-        "replaces": replaces["gbdi_paged_attn"], "launches": serve_launches["gbdi_paged_attn"],
+        "replaces": replaces["gbdi_paged_attn"],
+        "launches": serve_launches["gbdi_paged_attn"] + serving_launches["gbdi_paged_attn"],
         "max_abs_err": attn_err["out"], "ms": pa_ms, "plain_ms": pa_plain_ms,
         "bound_ms": pa_bound, "bound_by": pa_bound_by, "library_ms": lib_ms,
     })

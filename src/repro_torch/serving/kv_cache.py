@@ -110,7 +110,8 @@ class KVSpec:
 
     def compressed_bytes(self, batch: int) -> int:
         per_page = self.fr.compressed_bytes_per_page()
-        pages = 2 * batch * self.n_pages * per_page  # k and v
+        # k and v; a row wider than a page fills pages_per_row slots a page
+        pages = 2 * batch * self.n_pages * self.pages_per_row * per_page
         tail = 2 * batch * self.page_tokens * self.row_words * self.word_bytes
         if self.resident_decode:  # the decoded copy is resident too
             pages += 2 * batch * self.n_pages * self.page_tokens \
@@ -126,7 +127,7 @@ class KVSpec:
         allocated).  The full static-slot cost is :meth:`compressed_bytes`."""
         pages = min(self.n_pages, max(0, n_tokens) // self.page_tokens)
         per_page = self.fr.compressed_bytes_per_page()
-        b = 2 * batch * pages * per_page
+        b = 2 * batch * pages * self.pages_per_row * per_page
         b += 2 * batch * self.page_tokens * self.row_words * self.word_bytes
         if self.resident_decode:
             b += 2 * batch * pages * self.page_tokens \

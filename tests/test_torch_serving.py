@@ -197,25 +197,66 @@ def assert_within_one_ulp(got, want):
 # geometry and state
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("geom", [(8, 128, 32768, False), (8, 128, 32768, True),
-                                  (2, 16, 33, False), (32, 128, 100, False),
-                                  (32, 128, 100, True)],
-                         ids=["llama405b", "llama405b-resident", "pt4-ragged", "wide-row",
-                              "wide-row-resident"])
+KV_GEOMS = [(8, 128, 32768, False), (8, 128, 32768, True), (2, 16, 33, False),
+            (32, 128, 100, False), (32, 128, 100, True)]
+KV_GEOM_IDS = ["llama405b", "llama405b-resident", "pt4-ragged", "wide-row", "wide-row-resident"]
+
+
+@pytest.mark.parametrize("geom", KV_GEOMS, ids=KV_GEOM_IDS)
 def test_kvspec_arithmetic_matches_reference(ref, geom):
+    """Where a row fits in a page the byte counts equal the reference's.  A
+    row wider than a page fills ``pages_per_row`` slots a page, which the
+    port counts and the reference does not: there the port exceeds the
+    reference by exactly the uncounted slots, K and V."""
     n_kv, hd, max_len, resident = geom
     jspec = ref.kvc.KVSpec(n_kv=n_kv, head_dim=hd, max_len=max_len, resident_decode=resident)
     spec = interop.kv_spec_from_fields(dataclasses.asdict(jspec))
     assert spec == tkv.KVSpec(n_kv=n_kv, head_dim=hd, max_len=max_len, resident_decode=resident)
     for attr in ("row_words", "page_tokens", "n_pages", "word_bytes"):
         assert getattr(spec, attr) == getattr(jspec, attr), attr
+    ppr, per_page = spec.pages_per_row, spec.fr.compressed_bytes_per_page()
+    assert (ppr > 1) == (n_kv * hd > spec.fr.page_words)
+
+    def uncounted(b: int, pages: int) -> int:
+        return 2 * b * (ppr - 1) * pages * per_page
+
     for b in (1, 3, 8):
-        assert spec.compressed_bytes(b) == jspec.compressed_bytes(b)
+        assert spec.compressed_bytes(b) == jspec.compressed_bytes(b) + uncounted(b, spec.n_pages)
         assert spec.raw_bytes(b) == jspec.raw_bytes(b)
         for n in (0, 1, 5, 31, 100, 40000):
-            assert spec.compressed_bytes_upto(b, n) == jspec.compressed_bytes_upto(b, n)
+            pages = min(spec.n_pages, n // spec.page_tokens)
+            assert (spec.compressed_bytes_upto(b, n)
+                    == jspec.compressed_bytes_upto(b, n) + uncounted(b, pages))
             assert spec.raw_bytes_upto(b, n) == jspec.raw_bytes_upto(b, n)
     assert tkv.KV_FR == interop.config_from_fields(dataclasses.asdict(ref.kvc.KV_FR))
+
+
+@pytest.mark.parametrize("geom", KV_GEOMS, ids=KV_GEOM_IDS)
+def test_kvspec_counts_the_allocated_page_slots(ref, geom):
+    """``compressed_bytes`` is what ``init_compressed`` allocates: the page
+    slots of each side (``n_out.shape[1]``, the same in both packages) at
+    ``compressed_bytes_per_page``, plus the raw tail and any resident
+    region; ``compressed_bytes_upto`` at ``max_len`` is the same."""
+    n_kv, hd, max_len, resident = geom
+    jspec = ref.kvc.KVSpec(n_kv=n_kv, head_dim=hd, max_len=max_len)
+    spec = tkv.KVSpec(n_kv=n_kv, head_dim=hd, max_len=max_len, resident_decode=resident)
+    table = (np.arange(14, dtype=np.int32), np.full(14, 8, np.int32))
+    b = 1
+    cache = tkv.init_compressed(spec, b, interop.table_from_numpy(*table, device="cpu"),
+                                device="cpu")
+    jcache = ref.kvc.init_compressed(jspec, b, ref.fr.BaseTable(*map(ref.jnp.asarray, table)))
+    per_page = spec.fr.compressed_bytes_per_page()
+    total = 0
+    for side in ("k", "v"):
+        slots = cache[f"{side}_pages"]["n_out"].shape[1]
+        assert slots == jcache[f"{side}_pages"]["n_out"].shape[1]
+        assert slots == spec.n_pages * spec.pages_per_row
+        total += b * slots * per_page
+        total += cache[f"{side}_tail"].numel() * spec.word_bytes
+        if resident:
+            total += cache[f"{side}_dec"].numel() * spec.word_bytes
+    assert spec.compressed_bytes(b) == total
+    assert spec.compressed_bytes_upto(b, spec.n_pages * spec.page_tokens) == total
 
 
 @pytest.mark.parametrize("name", list(GEOMS))

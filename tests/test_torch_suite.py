@@ -1,7 +1,8 @@
 """The port's compression-ratio suite against the JAX package: ``evaluate``
 over every family the port registers x {gbdi, bdi, fr}, the reporting
-helpers, the CLI, throughput and the example and benchmark scripts (the FR config sweep is held
-to the reference in ``test_torch_host_codecs.py``).
+helpers, the CLI, throughput and the example and benchmark scripts, among
+them the serve CLI and the serving scripts (the FR config sweep is held to
+the reference in ``test_torch_host_codecs.py``).
 
 Streams are generated from a seed by both packages (byte-identical); each
 side fits its own model on the CPU, which the port reproduces exactly, so
@@ -203,6 +204,183 @@ def test_quickstart_runs_on_cpu(capsys):
     _load_script("examples/quickstart_torch.py").main(["--device", "cpu"])
     text = capsys.readouterr().out
     assert "GBDI compression ratio" in text and "geomean CR [gbdi ]" in text
+
+
+# ---------------------------------------------------------------------------
+# the serve CLI and the serving scripts, on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the serving scripts' tiny models: on a host
+    shared with other test workers torch's thread pool contends more than
+    it computes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_serve_cli_on_cpu(capsys, one_thread):
+    """More requests than slots: admission comes in waves, every request
+    gets ``max_new`` tokens."""
+    from repro_torch.launch import serve
+
+    done = serve.main(["--reduced", "--device", "cpu", "--requests", "5", "--slots", "2",
+                       "--max-new", "4", "--max-len", "64"])
+    assert [r.rid for r in done] == list(range(5))
+    assert all(r.done and len(r.out) == 4 for r in done)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"req {r.rid}: {r.out}" for r in done]
+
+
+@pytest.mark.parametrize("arch, error", [("paligemma-3b", SystemExit),
+                                         ("xlstm-1.3b", NotImplementedError)])
+def test_serve_cli_refuses_what_it_cannot_serve(arch, error):
+    """The stub-frontend families are refused as in the reference; a family
+    the port does not build yet raises ``NotImplementedError``."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(error):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "1"])
+
+
+@pytest.mark.parametrize("entry, argv", [
+    ("src/repro_torch/launch/serve.py", ["--reduced", "--requests", "1"]),
+    ("benchmarks/serving_bench_torch.py", ["--quick", "--json", ""]),
+    ("examples/serve_demo_torch.py", []),
+    ("benchmarks/decode_microbench_torch.py", ["--quick", "--json", ""]),
+    ("benchmarks/bench_kvcache_torch.py", []),
+])
+def test_serving_entry_points_default_to_the_card(entry, argv):
+    """Without ``--device cpu`` every serving entry point asks for the card,
+    and raises where there is none instead of running on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry point would run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load_script(entry).main(argv)
+
+
+def test_serving_bench_on_cpu(tmp_path, capsys, one_thread):
+    """``--quick`` writes the reference's artifact schema.  At its sizes the
+    engine's slots bind in both modes (2 and 2 resident, in the reference
+    too); at the default geometry the budget keeps 9 sequences resident
+    under compressed accounting against 8 raw, the policy numbers of the
+    reference's ``experiments/BENCH_serving.json`` at concurrency 12."""
+    drv = _load_script("benchmarks/serving_bench_torch.py")
+    out = tmp_path / "experiments" / "BENCH_serving_torch.json"
+    art = drv.main(["--quick", "--device", "cpu", "--json", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(art))
+    assert (tmp_path / "BENCH_serving_torch.json").exists()            # mirrored
+    want = json.loads((ROOT / "experiments" / "BENCH_serving.json").read_text())
+    assert set(want) | {"device", "power_limit"} == set(art)
+    assert art["devices"] == 1 and art["device"] == "cpu"
+    assert [set(r) for r in art["rows"]] == [set(want["rows"][0])] * 4
+    assert all(r["finished"] == r["concurrency"] and r["tokens"] == 4 * r["concurrency"]
+               for r in art["rows"])
+    assert art["summary"]["peak_resident"] == {"compressed": 2, "raw": 2}
+
+    art = drv.main(["--concurrencies", "12", "--device", "cpu", "--json", ""])
+    policy = ("bytes_per_seq", "capacity_seqs", "peak_resident", "resident_per_gib", "tokens",
+              "queue_wait_ticks_mean", "queue_wait_ticks_max", "evictions", "finished")
+    for got, ref in zip(art["rows"], [r for r in want["rows"] if r["concurrency"] == 12]):
+        assert {k: got[k] for k in policy} == {k: ref[k] for k in policy}
+    assert art["summary"]["peak_resident"] == {"compressed": 9, "raw": 8}
+    assert art["spec"] == want["spec"] and art["byte_budget"] == want["byte_budget"]
+    assert "serving/headline,0,budget=4194304;resident compressed=9 vs raw=8" \
+        in capsys.readouterr().out
+
+
+def test_serve_demo_on_cpu(capsys, one_thread):
+    """The reference's sizes: six raw sequences fit the budget, seven under
+    compressed accounting; the late priority-1 request evicts one sequence,
+    which resumes and finishes."""
+    counters = _load_script("examples/serve_demo_torch.py").main(["--device", "cpu"])
+    assert counters["raw"]["peak_resident"] == 6
+    assert counters["compressed"]["peak_resident"] == 7
+    for c in counters.values():
+        assert c["finished"] == 11 and c["tokens"] == 11 * 500
+        assert c["evicted"] == c["resumed"] >= 1
+    assert "x more of them fit one budget" in capsys.readouterr().out
+
+
+def test_decode_microbench_on_cpu(tmp_path, one_thread):
+    drv = _load_script("benchmarks/decode_microbench_torch.py")
+    art = drv.main(["--quick", "--device", "cpu", "--json", ""])
+    assert not list(tmp_path.iterdir())
+    assert art["contexts"] == [64, 256] and art["repeats"] == 3 and art["devices"] == 1
+    assert art["spec"] == {"n_kv": 4, "head_dim": 32, "page_words": 512, "page_tokens": 4}
+    assert [(r["context"], r["mode"], r["n_pages"]) for r in art["rows"]] == [
+        (64, "resident", 16), (64, "full", 16), (256, "resident", 64), (256, "full", 64)]
+    assert all(r["us_best"] <= r["us_per_token"] for r in art["rows"])
+    assert set(art["summary"]) == {"resident", "full"}
+
+
+def test_bench_kvcache_matches_reference(one_thread):
+    """The fidelity run's output equals, bit for bit, the reference's paged
+    attention over its own pages of the same tokens (``fr_encode``, the
+    Pallas kernel in interpret mode, the tail merge of
+    ``src/repro/serving/kv_cache.py``), so its error is the reference's."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import gbdi_fr as jfr
+    from repro.kernels import gbdi_paged_attn as jpa
+    from repro.serving import kv_cache as jkvc
+
+    got = _load_script("benchmarks/bench_kvcache_torch.py").run("cpu")
+    spec = jkvc.KVSpec(n_kv=8, head_dim=128, max_len=32768)
+    assert (got["raw"], got["compressed"]) == (spec.raw_bytes(4), spec.compressed_bytes(4))
+
+    small = jkvc.KVSpec(n_kv=4, head_dim=32, max_len=128, fr=jfr.FRConfig(
+        word_bits=16, page_words=128, delta_bits=8, num_bases=14, outlier_cap=16))
+    rng = np.random.default_rng(0)
+    n, pos = 96, 95
+    ch = rng.normal(0, 1, (1, 1, 4, 32)) * 2
+    ks = (ch + rng.normal(0, 0.1, (2, n, 4, 32))).astype(np.float32)
+    vs = (ch + rng.normal(0, 0.1, (2, n, 4, 32))).astype(np.float32)
+
+    def words(x):
+        return jax.lax.bitcast_convert_type(jnp.asarray(x).astype(jnp.bfloat16),
+                                            jnp.uint16).astype(jnp.int32)
+
+    table = jfr.fit_fr_bases(words(np.concatenate([ks, vs], 1)).reshape(-1), small.fr)
+    q = rng.normal(0, 1, (2, 1, 8, 32)).astype(np.float32)
+
+    def pages(x):          # one token a page: tokens 0..95 fill slots 0..95
+        blob = jfr.fr_encode(words(x).reshape(-1, 128), table, small.fr)
+        out = {}
+        for k, z in jkvc.init_compressed(small, 2, table)["k_pages"].items():
+            z = np.array(z)
+            z[:, :n] = np.asarray(blob[k]).reshape((2, n) + z.shape[2:])
+            out[k] = jnp.asarray(z)
+        return out
+
+    qg = jnp.asarray(q).reshape(2, 4, 2, 32)
+    acc, m, l = jpa.paged_attention_decode(qg, pages(ks), pages(vs), table, jnp.int32(pos),
+                                           small.fr, n_kv=4, hd=32, groups=2, interpret=True)
+    Kt, Vt = (jnp.asarray(x[:, pos:pos + 1]).astype(jnp.bfloat16).astype(jnp.float32)
+              for x in (ks, vs))
+    lg = jnp.einsum("bkgh,btkh->bkgt", qg, Kt) / jnp.sqrt(jnp.float32(32))
+    m2 = lg.max(-1)
+    p2 = jnp.exp(lg - m2[..., None])
+    accm, _, lm = jpa.merge_softmax(acc, m, l, jnp.einsum("bkgt,btkh->bkgh", p2, Vt), m2,
+                                    p2.sum(-1))
+    out_c = (accm / lm[..., None]).reshape(2, 1, 256).astype(jnp.bfloat16)
+    # the reference's error arithmetic (benchmarks/bench_kvcache.py)
+    Kr, Vr = (jnp.asarray(x).astype(jnp.bfloat16) for x in (ks, vs))
+    lg = jnp.einsum("bskgh,btkh->bkgst", jnp.asarray(q).reshape(2, 1, 4, 2, 32),
+                    Kr).astype(jnp.float32) / np.sqrt(32)
+    ref = jnp.einsum("bkgst,btkh->bskgh", jax.nn.softmax(lg, -1).astype(Vr.dtype),
+                     Vr).reshape(2, 1, 256)
+    err = float(jnp.abs(out_c - ref).max())
+    np.testing.assert_array_equal(got["out"].view(torch.int16).numpy(),
+                                  np.asarray(out_c).view(np.int16))
+    np.testing.assert_array_equal(got["ref"].view(torch.int16).numpy(),
+                                  np.asarray(ref).view(np.int16))
+    assert 0 < got["max_abs"] <= err
+    assert got["max_rel"] == err / float(jnp.abs(ref).max())
 
 
 # ---------------------------------------------------------------------------
