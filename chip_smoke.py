@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero before the final line:
    for bit: every page of the two codec streams (in chunks), an adaptive
    multi-profile config, a forced spill/drop page set, a set of 30-base
    tables with ties, dead entries and wrapping deltas (16- and 32-bit
-   words), the golden-CRC pages of the format's serialization, and (decode
-   only) blobs the encoder never writes, per word width;
+   words), the golden-CRC pages of the format's serialization, (decode
+   only) blobs the encoder never writes, per word width, and the gradient
+   ring's ``GRAD_FR`` (one 8-bit class, one 2,048-word bucket): bf16
+   gradient words, and pages whose every word is an outlier past the cap;
 3. the codec path through ``repro_torch.eval.run.evaluate_cell`` at 256 MiB
    per stream: ``ml_kvcache_bf16`` (16-bit config) and ``605.mcf_s`` (32-bit
    config), fit -> encode -> decode -> verify (mismatched words <= dropped),
@@ -83,7 +85,21 @@ Phases, in order; any failure exits non-zero before the final line:
    peak resident 6 raw against 7 compressed, tokens/s, TTFT, ms a tick
    (:func:`serving_full_width`); (c) ``decode_microbench_torch --quick``
    and ``bench_kvcache_torch`` on the card (:func:`serving_scripts`), which
-   launch kernels A, B and C; launches counted over the phase.
+   launch kernels A, B and C; launches counted over the phase;
+12. the front-end and the training path: (a) the ``ml_kvcache_bf16`` pages
+   as a pinned host stream in 16 batches through ``encode_stream`` and
+   ``decode_stream``, bit for bit against one kernel call, timed against a
+   serial copy-then-encode, and ``devices=2`` / ``encode_pages_sharded(
+   devices=3)`` on the one card (:func:`front_end`); (b) ``Trainer`` on
+   deepseek-7b at full width (2 layers): 4 steps with GBDI checkpoints and
+   the FR refit every 2, a run crashed at step 3 and resumed, crc32-equal to
+   the uninterrupted one (:func:`full_width_trainer`); (c) two gloo ranks on
+   the card, the compressed gradient ring against ``plain_pod_mean`` and one
+   ``make_train_step(compress_grads=True)`` step (:func:`ring_on_card`);
+   (d) ``bench_throughput_torch --quick``, ``bench_gradcomp_torch``,
+   ``gradient_compression_demo_torch`` and ``launch.train`` killed and rerun,
+   as subprocesses (:func:`slice_scripts`); launches counted in this process and
+   read back from the ring's ranks.
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
@@ -749,6 +765,525 @@ def serving_scripts(card) -> None:
         f"card vs CPU output max abs diff {diff:.4g} (bf16 tolerance rtol 1.6e-2, atol 1e-2)")
 
 
+#: phase 12: batches of the front-end's host stream, repeats of its timing,
+#: the trainer's steps and checkpoint interval, the ring's world
+STREAM_BATCHES, STREAM_REPEATS = 16, 5
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL_AT = 4, 2, 3
+RING_WORLD = 2
+
+
+def front_end(card, cfg, pages, table) -> dict:
+    """Phase 12 (a): ``pages`` (a codec stream's int32 pages on ``card``)
+    as a pinned host stream in :data:`STREAM_BATCHES` batches through
+    ``encode_stream`` and back through ``decode_stream``, every blob and
+    word equal to one ``ops.encode_pages`` / ``decode_pages`` call; the
+    stream's time against a serial copy-then-encode from the same pinned
+    batches (CUDA events, medians of :data:`STREAM_REPEATS`, in turns); and
+    ``devices=2`` (the card twice) and ``encode_pages_sharded(devices=3)``
+    against the single call."""
+    import torch
+
+    from repro_torch.kernels import ops, pipeline
+
+    want = ops.encode_pages(pages, table, cfg)
+    words = ops.decode_pages(want, table, cfg)
+    host = torch.empty(pages.shape, dtype=pages.dtype, pin_memory=True)
+    host.copy_(pages)
+    batches = torch.tensor_split(host, STREAM_BATCHES)
+    bounds = [0]
+    for b in batches:
+        bounds.append(bounds[-1] + b.shape[0])
+
+    def check(label: str, got: dict) -> None:
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"[12a] {label}: field {k} differs from one encode call")
+
+    blobs = list(pipeline.encode_stream(batches, table, cfg, device=card))
+    check("encode_stream", {k: torch.cat([b[k] for b in blobs]) for k in want})
+    host_blobs = [{k: want[k][lo:hi].cpu().pin_memory() for k in want}
+                  for lo, hi in zip(bounds, bounds[1:])]
+    got = torch.cat(list(pipeline.decode_stream(host_blobs, table, cfg, device=card)))
+    if not torch.equal(got, words):
+        raise AssertionError("[12a] decode_stream words differ from one decode call")
+    check("devices=2", pipeline.encode_pages(pages, table, cfg, devices=2))
+    check("encode_pages_sharded(devices=3)",
+          pipeline.encode_pages_sharded(pages, table, cfg, devices=3))
+    if not torch.equal(pipeline.decode_pages(want, table, cfg, devices=2), words):
+        raise AssertionError("[12a] decode_pages(devices=2) differs from one decode call")
+    del blobs, host_blobs, got, words
+
+    def serial():
+        for b in batches:
+            ops.encode_pages(b.to(card, non_blocking=True), table, cfg)
+
+    def streamed():
+        for _ in pipeline.encode_stream(batches, table, cfg, device=card):
+            pass
+
+    def event_ms(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(card)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    serial()
+    streamed()
+    times = {"serial": [], "stream": []}
+    for i in range(STREAM_REPEATS):
+        order = ("serial", "stream") if i % 2 == 0 else ("stream", "serial")
+        for name in order:
+            times[name].append(event_ms(serial if name == "serial" else streamed))
+    copy_ms = sorted(event_ms(lambda: [b.to(card, non_blocking=True) for b in batches])
+                     for _ in range(STREAM_REPEATS))[STREAM_REPEATS // 2]
+    enc_ms = sorted(event_ms(lambda: ops.encode_pages(pages, table, cfg))
+                    for _ in range(STREAM_REPEATS))[STREAM_REPEATS // 2]
+    nbytes = host.numel() * host.element_size()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    out = {"bytes": nbytes, "serial_ms": med["serial"], "stream_ms": med["stream"],
+           "copy_ms": copy_ms, "encode_ms": enc_ms,
+           "serial_gib_s": nbytes / (1 << 30) / (med["serial"] / 1e3),
+           "stream_gib_s": nbytes / (1 << 30) / (med["stream"] / 1e3)}
+    log(f"[12a] encode_stream / decode_stream of {pages.shape[0]} pages ({nbytes} B of int32 "
+        f"word pages, pinned, {STREAM_BATCHES} batches) bit-identical to one encode and one "
+        "decode call; devices=2 and encode_pages_sharded(devices=3) identical too")
+    log(f"[12a] double-buffered stream {med['stream']:.3f} ms ({out['stream_gib_s']:.2f} GiB/s) "
+        f"vs serial copy-then-encode {med['serial']:.3f} ms ({out['serial_gib_s']:.2f} GiB/s), "
+        f"medians of {STREAM_REPEATS} in turns (all: stream "
+        + ", ".join(f"{t:.3f}" for t in times["stream"]) + "; serial "
+        + ", ".join(f"{t:.3f}" for t in times["serial"]) + f"); the copies alone {copy_ms:.3f} "
+        f"ms, one encode of all pages {enc_ms:.3f} ms (CUDA events; {card_tag(card)})")
+    return out
+
+
+def _crc_tree(tree) -> dict:
+    """crc32 of each leaf's bytes, keyed by its path (host threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch._tree import path_str, tree_flatten_with_path
+    from repro_torch.interop import params_to_numpy
+
+    leaves = [(path_str(p), t) for p, t in tree_flatten_with_path(tree)]
+    with ThreadPoolExecutor(8) as pool:
+        crcs = pool.map(lambda kv: zlib.crc32(params_to_numpy(kv[1]).tobytes()), leaves)
+        return dict(zip((k for k, _ in leaves), crcs))
+
+
+def full_width_trainer(card, ckpt_root: Path) -> dict:
+    """Phase 12 (b): deepseek-7b at its published width (:data:`FULL_LAYERS`
+    layers, bf16) under ``Trainer`` with the phase-10 batch (4 x 32):
+    :data:`TRAIN_STEPS` steps with a checkpoint and an FR refit every
+    :data:`TRAIN_EVERY`; then a run that crashes at :data:`TRAIN_FAIL_AT`
+    and one that resumes from its checkpoint.  The resumed run's parameters
+    and moments must equal the uninterrupted run's (crc32 of each leaf).
+    Returns the step and checkpoint times, the stored bytes, the peak
+    memory, the refit table and the wall time (host clock around
+    synchronised work)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer as trainer_mod
+
+    def sync() -> None:
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
+
+    times = {"step_ms": [], "save_s": [], "load_s": []}
+    saves = []
+
+    def timed(fn, label: str, scale: float):
+        def wrapper(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            times[label].append((time.perf_counter() - t0) * scale)
+            return out
+        return wrapper
+
+    class TimedCkpt:
+        latest_step = staticmethod(ckpt.latest_step)
+        load = staticmethod(timed(ckpt.load, "load_s", 1.0))
+
+        @staticmethod
+        def save(*args, **kw):
+            stats = timed(ckpt.save, "save_s", 1.0)(*args, **kw)
+            saves.append(stats)
+            return stats
+
+    t_all = time.perf_counter()
+    cfg = dataclasses.replace(get_config(FULL_ARCH), n_layers=FULL_LAYERS)
+    model = build_model(cfg, card)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab_size, 32, 4, seed=0))
+    acfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+
+    def trainer(ckpt_dir: Path, fail_at: int = -1):
+        tr = trainer_mod.Trainer(model, acfg, pipe, trainer_mod.TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_EVERY, ckpt_dir=str(ckpt_dir),
+            log_every=1, refit_fr_every=TRAIN_EVERY, fail_at_step=fail_at))
+        tr.step_fn = timed(tr.step_fn, "step_ms", 1e3)
+        return tr
+
+    real_ckpt = trainer_mod.ckpt
+    trainer_mod.ckpt = TimedCkpt
+    if card.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(card)
+    try:
+        tr = trainer(ckpt_root / "straight")
+        params, opt = tr.run(seed=SEED)
+        want = _crc_tree({"params": params, "opt": opt})
+        fr_bases = tr.fr_bases
+        losses = [h["loss"] for h in tr.history if "loss" in h]
+        del params, opt, tr
+        crashing = trainer(ckpt_root / "crash", fail_at=TRAIN_FAIL_AT)
+        try:
+            crashing.run(seed=SEED)
+            raise AssertionError(f"[12b] no failure was injected at step {TRAIN_FAIL_AT}")
+        except trainer_mod.SimulatedFailure:
+            pass
+        del crashing
+        resumed = trainer(ckpt_root / "crash")
+        params, opt = resumed.run(seed=SEED)
+        got = _crc_tree({"params": params, "opt": opt})
+        resumed_from = resumed.history[0]["step"]
+        del params, opt, resumed
+    finally:
+        trainer_mod.ckpt = real_ckpt
+    peak = torch.cuda.max_memory_allocated(card) if card.type == "cuda" else 0
+    del model
+    if card.type == "cuda":
+        torch.cuda.empty_cache()
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        raise AssertionError(f"[12b] resumed run differs from the uninterrupted one in {bad}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[12b] losses {losses}")
+    manifest = json.loads((ckpt_root / "straight" / f"step_{TRAIN_STEPS}" / "manifest.json")
+                          .read_text())
+    codecs = {k: e["codec"] for k, e in manifest["leaves"].items()}
+    out = {"losses": losses, "resumed_from": resumed_from, "leaves": len(want),
+           "fr_bases": fr_bases.bases.tolist(), "fr_widths": fr_bases.widths.tolist(),
+           "saves": saves, "peak": peak, "wall_s": time.perf_counter() - t_all, **times}
+    st = saves[0]
+    log(f"[12b] {FULL_ARCH} at full width, {FULL_LAYERS} layers, {cfg.dtype}: Trainer "
+        f"{TRAIN_STEPS} steps (batch 4 x 32), checkpoint and FR refit every {TRAIN_EVERY}; "
+        f"losses {[round(v, 4) for v in losses]}; a run crashed at step {TRAIN_FAIL_AT} and "
+        f"resumed from step {resumed_from}: all {len(want)} leaves (parameters and moments) "
+        "crc32-equal to the uninterrupted run")
+    log("[12b] step ms " + ", ".join(f"{t:.1f}" for t in times["step_ms"])
+        + "; checkpoint save s " + ", ".join(f"{t:.2f}" for t in times["save_s"])
+        + "; load s " + ", ".join(f"{t:.2f}" for t in times["load_s"])
+        + f"; bytes raw {st['bytes_raw']}, stored {st['bytes_stored']}, ratio {st['ratio']:.4f} "
+        "(later saves: " + ", ".join(f"{s['bytes_stored']} B, {s['ratio']:.4f}" for s in saves[1:])
+        + f"); peak memory {peak} B; refit fr_bases {out['fr_bases']} widths "
+        f"{out['fr_widths']}; wall {out['wall_s']:.1f} s (host clock, synchronised; "
+        f"{card_tag(card)})")
+    log(f"[12b] step-{TRAIN_STEPS} checkpoint codecs: "
+        + ", ".join(f"{k} {c}" for k, c in codecs.items()))
+    return out
+
+
+def _hold_ring_leaves(grads, table) -> list[dict]:
+    """Kernels A and B against their plain versions on the ring's own
+    inputs: each gradient leaf encoded as the ring encodes it
+    (``collectives._encode_leaf``: its bf16 words in ``GRAD_FR`` pages, one
+    pipeline call) and decoded as the ring decodes it
+    (``pipeline.decode_pages``), against ``gbdi_encode_plain`` on the same
+    pages and ``gbdi_decode_plain`` on the same blob, :data:`CHUNK_PAGES`
+    pages at a time.  Raises unless every blob field (``n_dropped``
+    included) and every word is equal bit for bit.  Returns per leaf its
+    pages, the words the kernel's and the plain encode dropped, and the
+    words that do not come back as they went in."""
+    import torch
+
+    from repro_torch._tree import path_str, tree_flatten_with_path
+    from repro_torch.core.gbdi_fr import bf16_to_words
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import gbdi_decode as dec_mod
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.kernels import pipeline
+
+    def diff(a, b) -> int:
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    cfg = collectives.GRAD_FR
+    rows = []
+    for p, g in tree_flatten_with_path(grads):
+        kb = collectives._encode_leaf(g, table)
+        kw = pipeline.decode_pages(kb, table, cfg)
+        words = bf16_to_words(g.reshape(-1))
+        words = torch.nn.functional.pad(words, (0, (-words.numel()) % cfg.page_words))
+        words = words.reshape(-1, cfg.page_words)
+        row = {"leaf": path_str(p), "words": g.numel(), "pages": words.shape[0], "enc_err": 0,
+               "dec_err": 0, "kernel_dropped": int(kb["n_dropped"].sum()), "plain_dropped": 0,
+               "lost": 0}
+        for i in range(0, words.shape[0], CHUNK_PAGES):
+            sl = slice(i, i + CHUNK_PAGES)
+            pb = enc_mod.gbdi_encode_plain(words[sl], table, cfg)
+            if set(pb) != set(kb):
+                raise AssertionError(f"[12c] {row['leaf']}: blob keys {sorted(kb)} != {sorted(pb)}")
+            row["enc_err"] = max(row["enc_err"], *(diff(kb[k][sl], pb[k]) for k in pb))
+            pw = dec_mod.gbdi_decode_plain({k: v[sl] for k, v in kb.items()}, table, cfg)
+            row["dec_err"] = max(row["dec_err"], diff(kw[sl], pw))
+            row["plain_dropped"] += int(pb["n_dropped"].sum())
+            row["lost"] += int((pw != words[sl]).sum())
+        if row["enc_err"] or row["dec_err"] or row["kernel_dropped"] != row["plain_dropped"]:
+            raise AssertionError(f"[12c] {row['leaf']}: kernels differ from plain on the ring's "
+                                 f"leaf: {row}")
+        rows.append(row)
+        del kb, kw, words
+    return rows
+
+
+def _ring_rank(rank: int, world: int, payload: dict) -> dict:
+    """Phase 12 (c), one rank: the full-width model from the shared seed on
+    ``payload['device']``, the gradients of this rank's batch, kernels A and
+    B held to their plain versions on every leaf as the ring encodes it
+    (:func:`_hold_ring_leaves`, before the counts are zeroed), the ring mean
+    under the refit table against ``plain_pod_mean``, the ring under a table
+    fitted on rank 0's gradients, then one ``make_train_step(compress_grads=
+    True)`` step; returns counts, errors, times, launches and crc32s."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import interop
+    from repro_torch._tree import path_str, tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import gbdi_decode as dec_mod
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_step
+
+    card = torch.device(payload["device"])
+
+    def sync() -> None:
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
+
+    cfg = dataclasses.replace(get_config(FULL_ARCH), n_layers=FULL_LAYERS)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(SEED))
+    state = adamw.init_state(params)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab_size, 32, 2, seed=0))
+    batch = pipe.batch_at(0, host=rank, n_hosts=world)
+    refit = interop.table_from_numpy(*payload["fr_bases"], device=card)
+    loss, grads = train_step._grads(model, batch)
+    names = [path_str(p) for p, _ in tree_flatten_with_path(grads)]
+    n_grad = sum(t.numel() for _, t in tree_flatten_with_path(grads))
+    sync()
+    t0 = time.perf_counter()
+    held = _hold_ring_leaves(grads, refit)
+    sync()
+    enc_mod.launch_count = dec_mod.launch_count = 0
+    out = {"rank": rank, "loss": float(loss), "ring": {}, "n_grad": n_grad, "held": held,
+           "held_s": time.perf_counter() - t0}
+
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    plain = collectives.plain_pod_mean(grads)
+    sync()
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def ring(label: str, table) -> None:
+        stats = {}
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        comp = collectives.compressed_pod_mean(grads, table, stats=stats)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        leaves = []
+        for name, c, p in zip(names, (t for _, t in tree_flatten_with_path(comp)),
+                              (t for _, t in tree_flatten_with_path(plain))):
+            cf, pf = c.float(), p.float()
+            err = float((cf - pf).abs().max())
+            scale = float(pf.abs().max())
+            leaves.append({"leaf": name, "mismatched": int((c != p).sum()), "max_err": err,
+                           "max_plain": scale, "within_tol": err <= 2e-2 * scale + 1e-6,
+                           "all_zero": bool((cf == 0).all()), "finite": bool(cf.isfinite().all())})
+        out["ring"][label] = {"ms": ms, **stats, "leaves": leaves}
+        del comp
+
+    ring("refit", refit)
+    # a table fitted on rank 0's gradient words (the refit's sample rule), shared
+    if rank == 0:
+        big = [g for g in (t for _, t in tree_flatten_with_path(grads)) if g.numel() > 4096]
+        sample = torch.cat([g.reshape(-1)[:4096] for g in big[:8]])
+        gtab = fit_fr_bases(bf16_to_words(sample), collectives.GRAD_FR)
+        shared = torch.stack([gtab.bases.cpu(), gtab.widths.cpu()])
+    else:
+        shared = torch.zeros((2, collectives.GRAD_FR.num_bases), dtype=torch.int32)
+    dist.broadcast(shared, src=0)
+    out["grad_fit_bases"] = shared[0].tolist()
+    ring("grad_fit", interop.table_from_numpy(shared[0].numpy(), shared[1].numpy(), device=card))
+    del grads, plain
+    model.set_params(params)
+    step = train_step.make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                               total_steps=10),
+                                      compress_grads=True, fr_bases=refit)
+    sync()
+    t0 = time.perf_counter()
+    new_params, _, metrics = step(params, state, batch)
+    sync()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["step_loss"] = float(metrics["loss"])
+    out["finite"] = all(bool(t.float().isfinite().all()) for _, t in tree_flatten_with_path(new_params))
+    out["crc"] = {path_str(p): zlib.crc32(interop.params_to_numpy(t).tobytes())
+                  for p, t in tree_flatten_with_path(new_params)}
+    out["launches"] = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    out["peak"] = torch.cuda.max_memory_allocated(card) if card.type == "cuda" else 0
+    return out
+
+
+def ring_on_card(card, fr_bases: tuple) -> dict:
+    """Phase 12 (c): :func:`_ring_rank` on :data:`RING_WORLD` gloo ranks,
+    each a process with its own CUDA context on ``card``.  Gates: on each
+    rank, before its ring runs, kernels A and B equal their plain versions
+    bit for bit on every leaf as the ring encodes and decodes it (blobs,
+    ``n_dropped`` included, and words), so the words the ring drops are the
+    format's, not the kernel's; the ring
+    mean under the refit table equals ``plain_pod_mean`` on every word the
+    other rank's encode did not drop (GBDI-FR is lossless in capacity), so
+    a rank's mismatched words are at most the other rank's dropped words;
+    each rank launched kernels A and B; every updated parameter is finite.
+    Reported: the reference test's bf16-transport tolerance per leaf, the
+    same under a table fitted on the gradients, the crc32 agreement of the
+    two ranks' updated parameters, wire bytes, times and peak memory."""
+    from repro_torch.distributed.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_ranks(_ring_rank, RING_WORLD,
+                         {"device": str(card), "fr_bases": fr_bases},
+                         init_dir=tmp, timeout_s=900.0)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        held = out["held"]
+        log(f"[12c] rank {r}: kernels A and B bit-identical to plain on all {len(held)} "
+            f"gradient leaves as the ring encodes them ({sum(h['pages'] for h in held)} GRAD_FR "
+            f"pages, refit table; {out['held_s']:.1f} s); words dropped per leaf, kernel / plain "
+            "encode (words that do not come back): "
+            + ", ".join(f"{h['leaf']} {h['kernel_dropped']}/{h['plain_dropped']} ({h['lost']}) of "
+                        f"{h['words']}" for h in held))
+        other = outs[(r - 1) % RING_WORLD]
+        for label, ring in out["ring"].items():
+            mism = sum(leaf["mismatched"] for leaf in ring["leaves"])
+            ok = sum(leaf["within_tol"] and not leaf["all_zero"] for leaf in ring["leaves"])
+            log(f"[12c] rank {r} {label} table: exchange {ring['ms']:.1f} ms, wire "
+                f"{ring['wire_bytes']} B sent, {ring['n_dropped']} words dropped by this rank's "
+                f"encode; {mism} words differ from plain_pod_mean; reference bf16-transport "
+                f"tolerance (2e-2 max|plain| + 1e-6, not all zero) held on {ok} of "
+                f"{len(ring['leaves'])} leaves")
+            for leaf in ring["leaves"]:
+                if not leaf["finite"]:
+                    raise AssertionError(f"[12c] rank {r} {label} {leaf['leaf']}: not finite")
+            if label == "refit" and mism > other["ring"][label]["n_dropped"]:
+                raise AssertionError(f"[12c] rank {r}: {mism} words differ from plain_pod_mean, "
+                                     f"more than the {other['ring'][label]['n_dropped']} the "
+                                     "other rank dropped")
+        if not (out["launches"]["gbdi_encode"] > 0 and out["launches"]["gbdi_decode"] > 0):
+            raise AssertionError(f"[12c] rank {r} launches {out['launches']}")
+        if not out["finite"]:
+            raise AssertionError(f"[12c] rank {r}: updated parameters not finite")
+    same = sum(outs[0]["crc"][k] == outs[1]["crc"][k] for k in outs[0]["crc"])
+    n = outs[0]["n_grad"]
+    log(f"[12c] cross-pod wire bytes a rank: GBDI-FR ring {outs[0]['ring']['refit']['wire_bytes']} "
+        f"B against a bf16 all-reduce payload of {2 * n} B and a float32 one of {4 * n} B "
+        f"({n} gradient elements)")
+    log(f"[12c] {RING_WORLD} gloo ranks on {card} ({card_tag(card)}): losses "
+        f"{[round(o['loss'], 4) for o in outs]}; plain_pod_mean "
+        + ", ".join(f"{o['plain_ms']:.1f}" for o in outs) + " ms; compressed train step "
+        + ", ".join(f"{o['step_ms']:.1f}" for o in outs) + " ms; updated parameters crc32-equal "
+        f"across ranks on {same} of {len(outs[0]['crc'])} leaves; launches "
+        f"{[o['launches'] for o in outs]}; peak memory {[o['peak'] for o in outs]} B; "
+        f"wall {wall:.1f} s")
+    return {"outs": outs, "wall_s": wall, "crc_equal": same,
+            "err": {"gbdi_encode": max(h["enc_err"] for o in outs for h in o["held"]),
+                    "gbdi_decode": max(h["dec_err"] for o in outs for h in o["held"])}}
+
+
+def slice_scripts(card, ckpt_root: Path) -> None:
+    """Phase 12 (d): the slice's scripts as subprocesses on the card:
+    ``bench_throughput_torch --quick`` (its five codecs' rows),
+    ``bench_gradcomp_torch`` (its two lines), ``gradient_compression_demo_torch``
+    and ``launch.train`` on the reduced deepseek-7b for 6 steps, killed after a
+    checkpoint and run again, which resumes from it."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def run(args: list[str], timeout: float = 600.0) -> str:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=root, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"[12d] {args} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        log(f"[12d] {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+        return proc.stdout
+
+    out = run(["benchmarks/bench_throughput_torch.py", "--quick", "--json", ""])
+    codecs = {line.split("/")[1].rsplit("_", 1)[0] for line in out.splitlines()
+              if line.startswith("throughput/")}
+    if codecs != {"gbdi", "bdi", "fr", "fr_xla", "fr_kernel"}:
+        raise AssertionError(f"[12d] throughput rows for {sorted(codecs)}")
+    for line in out.splitlines():
+        if line.startswith("throughput/fr"):
+            log(f"    {line}")
+    out = run(["benchmarks/bench_gradcomp_torch.py"])
+    lines = [line for line in out.splitlines() if line.startswith("gradcomp/")]
+    if [line.split(",")[0] for line in lines] != ["gradcomp/wire_bytes", "gradcomp/fidelity"]:
+        raise AssertionError(f"[12d] bench_gradcomp_torch printed {out!r}")
+    for line in lines:
+        log(f"    {line}")
+    out = run(["examples/gradient_compression_demo_torch.py"])
+    for line in out.splitlines():
+        log(f"    {line}")
+
+    ck = ckpt_root / "cli"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", FULL_ARCH, "--reduced",
+           "--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "2",
+           "--ckpt-dir", str(ck)]
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not (ck / "LATEST").exists() and proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise AssertionError("[12d] launch.train wrote no checkpoint in 300 s")
+            time.sleep(0.01)
+        running = proc.poll() is None
+        proc.kill()
+    finally:
+        proc.wait(timeout=60)
+        proc.stdout.close()
+    killed_at = int((ck / "LATEST").read_text())
+    if not running or killed_at >= 6:
+        raise AssertionError(f"[12d] launch.train ended before the kill (checkpoint {killed_at})")
+    out = run(cmd[1:])
+    steps = [int(line.split()[1]) for line in out.splitlines() if line.startswith("step")]
+    if not steps or steps[0] != killed_at or (ck / "LATEST").read_text() != "6":
+        raise AssertionError(f"[12d] the rerun did not resume from step {killed_at}:\n{out}")
+    log(f"[12d] launch.train killed after its step-{killed_at} checkpoint; the rerun resumed "
+        f"there and finished at step 6:")
+    for line in out.splitlines():
+        log(f"    {line}")
+
+
 def _loss_backward(model, batch) -> float:
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)[0]
@@ -948,6 +1483,26 @@ def main() -> int:
                                  f"from plain (err {d})")
         log(f"[2] hand-built {hcfg.word_bits}-bit blobs ({hcfg.num_profiles} profile(s)): "
             f"4096 pages decoded bit-identical to plain; plain decode {pms:.3f} ms")
+
+    # GRAD_FR, the gradient ring's config: 16-bit words, one 8-bit class, one
+    # 2,048-word bucket (num_classes == 1); gradient-like bf16 words on a table
+    # fitted to them, then pages whose every word is an outlier past the cap
+    # of 64 on a table far from them (words dropped)
+    from repro_torch.distributed.collectives import GRAD_FR
+    rng = np.random.default_rng(21)
+    g = rng.normal(0, 1, (4096, 2048)) * 10.0 ** rng.uniform(-6, -1, (4096, 1))
+    g[:, ::5] = 0
+    gw = bf16_to_words(torch.as_tensor(g.astype(np.float32), device=dev)).contiguous()
+    compare("grad-fr-gradients", gw, fit_fr_bases(gw, GRAD_FR), GRAD_FR)
+    far = interop.table_from_numpy(np.arange(1, 15, dtype=np.int32) * 200, [8] * 14, device=dev)
+    w = rng.integers(20000, 65536, (512, 2048))
+    w[256:, ::3] = 200 + rng.integers(-100, 100, (256, 683))      # a third fit, the rest drop
+    ow = torch.as_tensor(w.astype(np.int32), device=dev)
+    pb = enc_mod.gbdi_encode_plain(ow, far, GRAD_FR)
+    if not (int(pb["n_dropped"][:256].min()) == 2048 - GRAD_FR.outlier_cap
+            and int(pb["n_out"][:256].min()) == GRAD_FR.outlier_cap):
+        raise AssertionError("the all-outlier GRAD_FR pages did not fill the outlier table")
+    compare("grad-fr-all-outliers", ow, far, GRAD_FR)
 
     # -- phase 3: the main path, counted -------------------------------------
     enc_mod.launch_count = 0
@@ -1300,6 +1855,31 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # -- phase 12: the front-end, the trainer, the gradient ring, the scripts ----
+    t12 = time.perf_counter()
+    enc_mod.launch_count = dec_mod.launch_count = 0
+    _wl, _data, kv_cfg, kv_pages, kv_table = streams["ml_kvcache_bf16"]
+    t0 = time.perf_counter()
+    front_end(dev, kv_cfg, kv_pages, kv_table)
+    log(f"[12a] in {time.perf_counter() - t0:.1f} s")
+    del streams, kv_pages
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = full_width_trainer(dev, Path(tmp))
+        ring = ring_on_card(dev, (np.array(trained["fr_bases"], np.int32),
+                                  np.array(trained["fr_widths"], np.int32)))
+        slice_scripts(dev, Path(tmp))
+    front_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    ring_launches = {k: sum(o["launches"][k] for o in ring["outs"]) for k in front_launches}
+    for kname, e in ring["err"].items():
+        err[kname] = max(err[kname], e)
+    log(f"[12] phase-12 launches: this process {front_launches}, the ring's ranks "
+        f"{[o['launches'] for o in ring['outs']]} (the scripts' subprocesses not counted); "
+        f"phase wall time {time.perf_counter() - t12:.1f} s ({smi})")
+    for kname in front_launches:
+        if front_launches[kname] <= 0 or ring_launches[kname] <= 0:
+            raise AssertionError(f"{kname} was never launched in phase 12 (a) or (c)")
+
     replaces = {"gbdi_encode": "src/repro/kernels/gbdi_encode.py:292",
                 "gbdi_decode": "src/repro/kernels/gbdi_decode.py:148",
                 "gbdi_paged_attn": "src/repro/kernels/gbdi_paged_attn.py:160"}
@@ -1311,7 +1891,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": replaces[kname],
             "launches": (launches[kname] + serve_launches[kname] + suite_launches[kname]
-                         + dump_launches[kname] + ml_launches[kname] + serving_launches[kname]),
+                         + dump_launches[kname] + ml_launches[kname] + serving_launches[kname]
+                         + front_launches[kname] + ring_launches[kname]),
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })

@@ -13,8 +13,13 @@ the card (the reference runs them outside any Pallas kernel too).  On the
 CPU (``device="cpu"``, asked for by name) everything runs the plain
 versions.  The lossless codecs drop no word (``dropped_words`` is 0).
 
-Names: the port's ``fr`` on the CPU is the reference's ``fr`` (its jnp
-oracle); on the card it is the reference's ``fr_kernel``.
+Names, as the reference registers them: ``fr`` runs the codec through
+:mod:`repro_torch.kernels.ops` by the device (the plain version on the CPU,
+as the reference's jnp oracle; the kernels on the card); ``fr_xla`` is FR
+through the multi-device front-end :mod:`repro_torch.kernels.pipeline` (the
+role of the reference's compiled XLA path, with its ``devices`` and
+``stream_batches`` knobs); ``fr_kernel`` asks for the kernels by name (on the
+CPU their wrappers run the plain versions).
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.core import bdi, gbdi
 from repro_torch.core.format import BaseTable
 from repro_torch.core.gbdi_fr import FRConfig, fit_fr_bases
 from repro_torch.eval.registry import CodecRegistry
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, pipeline
 
 
 def word_bits_for_dtype(dtype: Any) -> int:
@@ -137,19 +142,46 @@ def default_config(word_bits: int) -> FRConfig:
 @dataclasses.dataclass
 class FRCodec(_DeviceCodec):
     """GBDI-FR v2 fixed-rate pages; capacity-bounded lossless (dropped
-    outliers decode to 0 and are counted in ``blob['n_dropped']``)."""
+    outliers decode to 0 and are counted in ``blob['n_dropped']``).
+
+    ``backend`` is ``"auto"`` or ``"kernel"`` (:func:`ops.resolve_backend`),
+    or ``"pipeline"``: the front-end :mod:`repro_torch.kernels.pipeline`,
+    where ``devices`` forces a shard count and ``stream_batches > 1`` keeps
+    the word stream on the host (pinned, on the card's machine) and feeds
+    the pages to the device in that many double-buffered chunks
+    (``encode_stream``; ``decode_stream`` back, the words returned to the
+    host).  Every path is bit-identical to one codec call.
+    """
 
     word_bits: int = 16
     name: str = "fr"
     lossless: bool = False
     cfg: FRConfig | None = None
+    backend: str = "auto"
+    devices: int | None = None     # pipeline backend: explicit shard count
+    stream_batches: int = 0        # pipeline backend: > 1 streams from the host
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.backend not in ("auto", "kernel", "pipeline"):
+            raise ValueError(f"unknown FR backend {self.backend!r}; choose auto, kernel "
+                             "or pipeline")
 
     def _config(self) -> FRConfig:
         return self.cfg if self.cfg is not None else default_config(self.word_bits)
 
+    @property
+    def _streams(self) -> bool:
+        return self.backend == "pipeline" and self.stream_batches > 1
+
     def stream(self, data: np.ndarray) -> torch.Tensor:
-        """Upload a raw buffer as the (n_words,) int32 words of the config."""
-        return gbdi.word_stream(data, self._config().word_bits, self._device)
+        """Upload a raw buffer as the (n_words,) int32 words of the config
+        (a streaming codec keeps them on the host, pinned for the card)."""
+        bits = self._config().word_bits
+        if not self._streams:
+            return gbdi.word_stream(data, bits, self._device)
+        words = gbdi.word_stream(data, bits, "cpu")
+        return words.pin_memory() if self._device.type == "cuda" else words
 
     def fit(self, words: torch.Tensor) -> BaseTable:
         # fit_fr_bases drops zeros and caps/tiles the sample
@@ -157,21 +189,42 @@ class FRCodec(_DeviceCodec):
 
     def encode(self, words: torch.Tensor, table: BaseTable) -> dict[str, Any]:
         cfg = self._config()
-        words = words.to(self._device)
+        if not self._streams:
+            words = words.to(self._device)
         n = words.shape[0]
         # an aligned stream is paged as a view; only a ragged tail is padded
         # (the pad copies the whole stream)
         if n % cfg.page_words:
             words = torch.nn.functional.pad(words, (0, (-n) % cfg.page_words))
-        blob: dict[str, Any] = dict(ops.encode_pages(
-            words.reshape(-1, cfg.page_words), table, cfg))
+        pages = words.reshape(-1, cfg.page_words)
+        if self._streams:
+            parts = torch.tensor_split(pages, min(self.stream_batches, max(1, pages.shape[0])))
+            blobs = list(pipeline.encode_stream(parts, table, cfg, device=self._device))
+            blob: dict[str, Any] = {k: torch.cat([b[k] for b in blobs]) for k in blobs[0]}
+        elif self.backend == "pipeline":
+            blob = dict(pipeline.encode_pages(pages, table, cfg, devices=self.devices))
+        else:
+            blob = dict(ops.encode_pages(pages, table, cfg, backend=self.backend))
         blob.update(_table=table, _cfg=cfg, _n_words=n)
         return blob
 
     def decode(self, blob: dict[str, Any]) -> torch.Tensor:
-        """The (n_words,) int32 word stream, on the codec's device."""
+        """The (n_words,) int32 word stream, where :meth:`stream` put it."""
+        cfg: FRConfig = blob["_cfg"]
         inner = {k: v for k, v in blob.items() if not k.startswith("_")}
-        pages = ops.decode_pages(inner, blob["_table"], blob["_cfg"])
+        if self._streams:
+            n = min(self.stream_batches, max(1, inner["n_out"].shape[0]))
+            chunks = {k: torch.tensor_split(v, n) for k, v in inner.items()}
+            parts = [{k: c[i] for k, c in chunks.items()} for i in range(n)]
+            pages = torch.cat(list(pipeline.decode_stream(parts, blob["_table"], cfg,
+                                                          device=self._device)))
+            # the words go back to the host stream they came from
+            return pages.reshape(-1)[: blob["_n_words"]].cpu()
+        if self.backend == "pipeline":
+            pages = pipeline.decode_pages(inner, blob["_table"], cfg, devices=self.devices,
+                                          unsigned=True)
+        else:
+            pages = ops.decode_pages(inner, blob["_table"], cfg, backend=self.backend)
         return pages.reshape(-1)[: blob["_n_words"]]
 
     def size_bits(self, blob: dict[str, Any]) -> int:
@@ -209,6 +262,10 @@ def default_codecs(device: str | None = None) -> CodecRegistry:
     reg.register("gbdi", lambda wb: GBDICodec(word_bits=wb, device=device))
     reg.register("bdi", lambda wb: BDICodec(word_bits=wb, device=device))
     reg.register("fr", lambda wb: FRCodec(word_bits=wb, device=device))
+    reg.register("fr_xla", lambda wb: FRCodec(word_bits=wb, device=device, backend="pipeline",
+                                              name="fr_xla"))
+    reg.register("fr_kernel", lambda wb: FRCodec(word_bits=wb, device=device, backend="kernel",
+                                                 name="fr_kernel"))
     return reg
 
 

@@ -350,7 +350,7 @@ THROUGHPUT_WORKLOADS = (
     "ml_kvcache_bf16",    # ML (serving KV distribution)
     "ml_grads_bf16",      # ML (gradient-transport distribution)
 )
-THROUGHPUT_CODECS = "gbdi,bdi,fr"
+THROUGHPUT_CODECS = "gbdi,bdi,fr,fr_xla,fr_kernel"
 
 
 def measure_throughput(
@@ -584,8 +584,8 @@ def main(argv: list[str] | None = None) -> list[EvalCell]:
                     help="directory of ingested dump containers to register as "
                          "dump:<name> families (default: $REPRO_DUMP_DIR or experiments/dumps)")
     ap.add_argument("--codec", default=None,
-                    help="comma list from: gbdi, bdi, fr (default: all three; the sweep "
-                         "runs fr only)")
+                    help="comma list from: gbdi, bdi, fr, fr_xla, fr_kernel (default: gbdi,bdi,fr; "
+                         f"{THROUGHPUT_CODECS} for --throughput; the sweep runs fr only)")
     ap.add_argument("--bytes", type=int, default=None, dest="n_bytes",
                     help="stream size per workload (default 1 MiB; 2 MiB for --throughput)")
     ap.add_argument("--seed", type=int, default=0)

@@ -10,23 +10,26 @@ kernel must match it bit for bit, on any blob of the right shapes.
 
 :func:`gbdi_decode` launches the kernel when the blob lies on a CUDA device
 and counts the launch in :data:`launch_count`; for a blob on the CPU it runs
-the plain version, and for any other device it raises.
+the plain version, and for any other device it raises.  The table may be a
+:class:`~repro_torch.kernels.gbdi_encode.PreparedTable`; any other table is
+prepared through the memo of :func:`~repro_torch.kernels.gbdi_encode.prepare_table`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.format import TableLike, as_base_table
+from repro_torch.core.format import TableLike
 from repro_torch.core.gbdi_fr import FRConfig, fr_decode
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdi_encode import (
     MAX_CLASSES,
     SMEM_LIMIT_BYTES,
+    PreparedTable,
     check_cuda_input,
     check_smem,
     kernel_iparams,
-    kernel_meta,
-    pad_table,
+    plain_table,
+    prepare_table,
 )
 
 #: warps of a decode block at most (``kMaxWarps``): a warp decodes one page at a time
@@ -69,12 +72,14 @@ def smem_bytes(cfg: FRConfig) -> int:
     return 4 * (fixed + max(block_warps(cfg), 1) * per_warp)
 
 
-def gbdi_decode_plain(blob: dict[str, torch.Tensor], table: TableLike, cfg: FRConfig) -> torch.Tensor:
+def gbdi_decode_plain(blob: dict[str, torch.Tensor], table: TableLike | PreparedTable,
+                      cfg: FRConfig) -> torch.Tensor:
     """The kernel's plain PyTorch version (on whatever device the blob lies)."""
-    return fr_decode(blob, table, cfg)
+    return fr_decode(blob, plain_table(table), cfg)
 
 
-def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike, cfg: FRConfig) -> torch.Tensor:
+def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike | PreparedTable,
+                cfg: FRConfig) -> torch.Tensor:
     """Decode a blob to (n_pages, page_words) int32 pages: the CUDA kernel
     for a blob on a CUDA device, the plain version for one on the CPU."""
     global launch_count
@@ -92,9 +97,8 @@ def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike, cfg: FRConfig) 
     for key, shape in shapes.items():
         check_cuda_input(blob[key], key, shape)
     check_smem(cfg, smem_bytes(cfg))
-    bt = as_base_table(table, default_width=cfg.widest_bits, device=dev)
-    bases, cls = (t.reshape(-1).contiguous() for t in pad_table(bt, cfg))
-    meta = kernel_meta(cfg, dev)
+    prep = prepare_table(table, cfg, dev)
+    bases, cls, meta = prep.bases, prep.cls, prep.meta
     out = torch.empty((n, cfg.page_words), dtype=torch.int32, device=dev)
     lib = _build.load("gbdi_decode")
     ptrs = _build.ptr_array([

@@ -13,8 +13,16 @@ The shared-memory budget check (:func:`check_smem`) stands where the
 reference's VMEM check stood: a config whose page does not fit one block's
 227 KB raises, with no fallback, and so does a page past the
 :data:`MAX_PAGE_WORDS` whose words the block's threads hold in registers.
+
+Both codec wrappers take a :class:`PreparedTable`, or build one through
+:func:`prepare_table`, which memoises the padded table and the kernels'
+meta on the device: the counterpart of the reference's
+``kernels/xla.py::prepare_table``.
 """
 from __future__ import annotations
+
+import collections
+from typing import Any, NamedTuple
 
 import torch
 
@@ -52,6 +60,90 @@ def pad_table(table: BaseTable, cfg: FRConfig) -> tuple[torch.Tensor, torch.Tens
     cls = torch.cat([cls, torch.full((pad,), cfg.num_classes, dtype=torch.int32,
                                      device=cls.device)])[None, :]
     return bases, cls
+
+
+class PreparedTable(NamedTuple):
+    """A table ready for the codec kernels on one device: the padded bases
+    and class indices (flat, ``k_padded`` entries) and :func:`kernel_meta`,
+    beside the :class:`BaseTable` the plain versions take."""
+
+    table: BaseTable
+    bases: torch.Tensor
+    cls: torch.Tensor
+    meta: torch.Tensor
+    cfg: FRConfig
+    device: torch.device
+
+
+#: prepared tables held at most (least recently used first out)
+PREP_CAP = 16
+_PREP_CACHE: collections.OrderedDict[tuple, tuple[tuple[Any, ...], PreparedTable]] = \
+    collections.OrderedDict()
+_PREP_STATS = {"hits": 0, "misses": 0}
+
+
+def _identity_key(table: Any) -> tuple[tuple[Any, ...], tuple] | None:
+    """(the keyed objects, their key) for a table of tensors, else None.
+
+    A tensor is keyed by its identity together with its version counter, so
+    an in-place write (``copy_``, ``add_``, a slice assignment) misses, and
+    no device sync is needed a call.  The entry holds the keyed tensors
+    alive, so an id cannot be handed to another tensor while it is cached
+    (keying on ``id()`` alone would hit on a dead table's successor).  A
+    write that bypasses the version counter (through ``.data`` or a numpy
+    view of a CPU tensor) is not seen: tables change through torch ops.
+    """
+    parts = tuple(table) if isinstance(table, BaseTable) else (table,)
+    if not all(isinstance(t, torch.Tensor) for t in parts):
+        return None
+    try:
+        key = tuple((id(t), t._version) for t in parts)
+    except RuntimeError:          # inference tensors carry no version counter
+        return None
+    return parts, key
+
+
+def prepare_table(table: TableLike | PreparedTable, cfg: FRConfig,
+                  device: torch.device) -> PreparedTable:
+    """The memoised :class:`PreparedTable` of ``table`` under ``cfg`` on
+    ``device`` (a prepared table for that config and device is returned as
+    it is)."""
+    if isinstance(table, PreparedTable):
+        if table.cfg == cfg and table.device == device:
+            return table
+        table = table.table
+    ident = _identity_key(table)
+    key = None if ident is None else (ident[1], cfg, device)
+    if key is not None:
+        hit = _PREP_CACHE.get(key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], ident[0])):
+            _PREP_STATS["hits"] += 1
+            _PREP_CACHE.move_to_end(key)
+            return hit[1]
+    _PREP_STATS["misses"] += 1
+    bt = as_base_table(table, default_width=cfg.widest_bits, device=device)
+    bases, cls = (t.reshape(-1).contiguous() for t in pad_table(bt, cfg))
+    prep = PreparedTable(bt, bases, cls, kernel_meta(cfg, device), cfg, device)
+    if key is not None:
+        _PREP_CACHE[key] = (ident[0], prep)
+        while len(_PREP_CACHE) > PREP_CAP:
+            _PREP_CACHE.popitem(last=False)
+    return prep
+
+
+def table_cache_info() -> dict[str, int]:
+    return {"hits": _PREP_STATS["hits"], "misses": _PREP_STATS["misses"],
+            "size": len(_PREP_CACHE)}
+
+
+def table_cache_clear() -> None:
+    _PREP_CACHE.clear()
+    _PREP_STATS["hits"] = _PREP_STATS["misses"] = 0
+
+
+def plain_table(table: TableLike | PreparedTable) -> TableLike:
+    """What the plain versions take: a prepared table's :class:`BaseTable`."""
+    return table.table if isinstance(table, PreparedTable) else table
 
 
 def smem_bytes(cfg: FRConfig) -> int:
@@ -100,12 +192,14 @@ def check_cuda_input(t: torch.Tensor, name: str, shape: tuple[int, ...]) -> None
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def gbdi_encode_plain(x_pages: torch.Tensor, table: TableLike, cfg: FRConfig) -> dict[str, torch.Tensor]:
+def gbdi_encode_plain(x_pages: torch.Tensor, table: TableLike | PreparedTable,
+                      cfg: FRConfig) -> dict[str, torch.Tensor]:
     """The kernel's plain PyTorch version (on whatever device ``x_pages`` lies)."""
-    return fr_encode(x_pages, table, cfg)
+    return fr_encode(x_pages, plain_table(table), cfg)
 
 
-def gbdi_encode(x_pages: torch.Tensor, table: TableLike, cfg: FRConfig) -> dict[str, torch.Tensor]:
+def gbdi_encode(x_pages: torch.Tensor, table: TableLike | PreparedTable,
+                cfg: FRConfig) -> dict[str, torch.Tensor]:
     """Encode (n_pages, page_words) int32 pages: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
     global launch_count
@@ -117,9 +211,8 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike, cfg: FRConfig) -> dict[
     n = x_pages.shape[0]
     check_cuda_input(x_pages, "x_pages", (n, cfg.page_words))
     check_smem(cfg)
-    bt = as_base_table(table, default_width=cfg.widest_bits, device=dev)
-    bases, cls = (t.reshape(-1).contiguous() for t in pad_table(bt, cfg))
-    meta = kernel_meta(cfg, dev)
+    prep = prepare_table(table, cfg, dev)
+    bases, cls, meta = prep.bases, prep.cls, prep.meta
 
     def out(*shape: int) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.int32, device=dev)
@@ -142,8 +235,6 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike, cfg: FRConfig) -> dict[
                                        "n_out", "n_spilled", "n_dropped")),
         blob["profile"].data_ptr() if cfg.num_profiles > 1 else 0,
     ])
-    # the temporaries above may be freed before the kernel runs: the caching
-    # allocator hands their memory out again only in stream order
     with torch.cuda.device(dev):
         rc = lib.gbdi_encode_launch(ptrs, _build.int_array(kernel_iparams(cfg, n)),
                                     torch.cuda.current_stream(dev).cuda_stream)
@@ -155,7 +246,8 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike, cfg: FRConfig) -> dict[
 
 
 __all__ = [
-    "MAX_PAGE_WORDS", "SMEM_LIMIT_BYTES", "check_smem", "gbdi_encode",
-    "gbdi_encode_plain", "k_padded", "kernel_iparams", "kernel_meta",
-    "launch_count", "pad_table", "smem_bytes",
+    "MAX_PAGE_WORDS", "PREP_CAP", "PreparedTable", "SMEM_LIMIT_BYTES", "check_smem",
+    "gbdi_encode", "gbdi_encode_plain", "k_padded", "kernel_iparams", "kernel_meta",
+    "launch_count", "pad_table", "plain_table", "prepare_table", "smem_bytes",
+    "table_cache_clear", "table_cache_info",
 ]

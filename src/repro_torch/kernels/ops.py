@@ -22,7 +22,7 @@ from repro_torch.core.format import TableLike
 from repro_torch.core.gbdi_fr import FRConfig, pages_to_tensor, tensor_to_pages
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.gbdi_decode import gbdi_decode
-from repro_torch.kernels.gbdi_encode import gbdi_encode
+from repro_torch.kernels.gbdi_encode import PreparedTable, gbdi_encode, plain_table
 
 BACKENDS = ("ref", "kernel", "auto")
 
@@ -40,19 +40,21 @@ def resolve_backend(backend: str | None, device: torch.device) -> str:
 
 
 def encode_pages(
-    x_pages: torch.Tensor, table: TableLike, cfg: FRConfig, backend: str = "auto"
+    x_pages: torch.Tensor, table: TableLike | PreparedTable, cfg: FRConfig,
+    backend: str = "auto",
 ) -> dict[str, torch.Tensor]:
     if resolve_backend(backend, x_pages.device) == "kernel":
         return gbdi_encode(x_pages, table, cfg)
-    return _ref.encode_ref(x_pages, table, cfg)
+    return _ref.encode_ref(x_pages, plain_table(table), cfg)
 
 
 def decode_pages(
-    blob: dict[str, torch.Tensor], table: TableLike, cfg: FRConfig, backend: str = "auto"
+    blob: dict[str, torch.Tensor], table: TableLike | PreparedTable, cfg: FRConfig,
+    backend: str = "auto",
 ) -> torch.Tensor:
     if resolve_backend(backend, blob["ptrs"].device) == "kernel":
         return gbdi_decode(blob, table, cfg)
-    return _ref.decode_ref(blob, table, cfg)
+    return _ref.decode_ref(blob, plain_table(table), cfg)
 
 
 def encode_tensor(

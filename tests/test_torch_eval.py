@@ -122,7 +122,9 @@ def test_cli_on_cpu(tmp_path):
 
 
 ENTRY_SCRIPTS = ["examples/quickstart_torch.py", "benchmarks/bench_compression_torch.py",
-           "benchmarks/bench_kmeans_torch.py"]
+                  "benchmarks/bench_kmeans_torch.py", "benchmarks/bench_throughput_torch.py",
+                  "benchmarks/bench_gradcomp_torch.py", "examples/train_lm_torch.py",
+                  "examples/gradient_compression_demo_torch.py"]
 
 
 def test_port_imports_no_jax_and_no_reference():

@@ -308,7 +308,7 @@ def test_word_bits_for_dtype(ref):
 
 
 def test_codec_registry_names():
-    assert tcodecs.default_codecs("cpu").names() == ["gbdi", "bdi", "fr"]
+    assert tcodecs.default_codecs("cpu").names() == ["gbdi", "bdi", "fr", "fr_xla", "fr_kernel"]
 
 
 # ---------------------------------------------------------------------------
