@@ -99,7 +99,21 @@ Phases, in order; any failure exits non-zero before the final line:
    (d) ``bench_throughput_torch --quick``, ``bench_gradcomp_torch``,
    ``gradient_compression_demo_torch`` and ``launch.train`` killed and rerun,
    as subprocesses (:func:`slice_scripts`); launches counted in this process and
-   read back from the ring's ranks.
+   read back from the ring's ranks;
+13. the model zoo (:func:`model_zoo`): mixtral-8x22b, qwen3-moe-235b-a22b,
+   zamba2-7b, xlstm-1.3b, paligemma-3b and musicgen-large, one at a time:
+   (a) a narrow float32 copy card vs CPU on one carried init (logits, loss,
+   prefill, a decode step); (b) at the published width with the depth of
+   :data:`ZOO`, loss + backward and two in-place AdamW steps (finite, ms,
+   peak memory); (c) prefill, three decode steps, serving consistency, and
+   for the MoE, hybrid and ssm configs three requests through ``Engine``;
+   (d) the trained parameters and serving caches captured as ``dump:``
+   families, ``evaluate(suite="dump")`` over gbdi, bdi and fr (kernels A and
+   B), each family held to the CPU; (e) kernel C in a ``KVSession`` at the
+   attention geometries of mixtral, qwen3, paligemma and musicgen over layer
+   0's K/V of a 2,048-token prompt, against its plain version and SDPA,
+   timed; zamba2's ``KVSpec`` refused.  Launches counted over the sessions
+   and the dump suite.
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
@@ -203,6 +217,24 @@ def blob_diff(a: dict, b: dict) -> list[str]:
         if not same:
             bad.append(k)
     return bad
+
+
+def attn_errors(acc, m, l, pacc, pm, pl) -> dict:
+    """Kernel C's (acc, m, l) against the plain version's, as ``ATTN_TOL``
+    bounds them: max |acc/l - plain| over rows with a valid token, |m - m_p|
+    / (1 + |m_p|), |l - l_p| / l_p.  Raises if a row with no valid token is
+    not (0, -1e30, 0)."""
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
+
+    live = pl > 0
+    dead = ~live
+    if not ((m[dead] == pa_mod.MASKED).all() and (l[dead] == 0).all()
+            and (acc[dead] == 0).all()):
+        raise AssertionError("a row with no valid token is not (0, -1e30, 0)")
+    return {"out": float((acc[live] / l[live][:, None] - pacc[live] / pl[live][:, None])
+                         .abs().max()) if live.any() else 0.0,
+            "m": float(((m - pm).abs() / (1 + pm.abs())).max()),
+            "l": float(((l - pl).abs() / pl)[live].max()) if live.any() else 0.0}
 
 
 def hold_to_cpu(workloads: list, card, n_bytes: int, tag: str) -> None:
@@ -335,8 +367,6 @@ def dump_suite(card, model, dump_dir: Path, check_bytes: int = CHECK_BYTES,
     ``suite_bytes`` per family over gbdi, bdi and fr, every cell verified;
     then every dump family held to the CPU at ``check_bytes`` on carried
     models.  Returns the suite's cells."""
-    import numpy as np
-
     from repro_torch.eval import ingest
     from repro_torch.eval import run as eval_run
     from repro_torch.eval.codecs import default_codecs
@@ -355,19 +385,14 @@ def dump_suite(card, model, dump_dir: Path, check_bytes: int = CHECK_BYTES,
         f"({proc.meta['skipped_maps']} skipped), saved in {time.perf_counter() - t0:.1f} s "
         f"(host; {card_tag(card)})")
     t0 = time.perf_counter()
-    full = ingest.capture_pytree(model.params(), "params_full")
-    words = ingest.sample_stream(full, capture_bytes, 0)
     name = f"{model.cfg.arch_id}_{model.cfg.n_layers}l_params"
-    ingest.DumpImage(
-        name=name, segments=[ingest.Segment(name="sample", data=words.view(np.uint8),
-                                            note=f"pages of {len(full.segments)} leaves")],
-        word_bits=full.word_bits, source=f"capture_pytree({model.cfg.arch_id}, "
-        f"{model.cfg.n_layers} layers)", meta={**full.meta, "sampled_from": full.n_bytes},
-    ).save(dump_dir / f"{name}.npz")
-    log(f"[9] capture_pytree: {full.n_bytes} B in {len(full.segments)} leaves "
-        f"(word_bits {full.word_bits}) sampled to {words.nbytes} B, saved in "
+    image = sampled_image(model.params(), name, f"capture_pytree({model.cfg.arch_id}, "
+                          f"{model.cfg.n_layers} layers)", capture_bytes)
+    image.save(dump_dir / f"{name}.npz")
+    log(f"[9] capture_pytree: {image.meta['sampled_from']} B in {image.meta['n_arrays']} leaves "
+        f"(word_bits {image.word_bits}) sampled to {image.n_bytes} B, saved in "
         f"{time.perf_counter() - t0:.1f} s (host; {card_tag(card)})")
-    del full, words
+    del image
 
     reg = default_workloads(str(dump_dir), device=str(card))
     dumps = reg.select("dump")
@@ -1284,6 +1309,497 @@ def slice_scripts(card, ckpt_root: Path) -> None:
         log(f"    {line}")
 
 
+#: phase 13: the six configs past the dense family at their published widths
+#: (src/repro/configs/*, bf16), each with the depth on the card: cut only where
+#: 80 GB forces it (about 12 B a trained parameter: bf16 weights and
+#: gradients, float32 AdamW moments)
+ZOO = {"mixtral-8x22b": 1, "qwen3-moe-235b-a22b": 1, "zamba2-7b": 18, "xlstm-1.3b": 48,
+       "paligemma-3b": 18, "musicgen-large": 48}
+#: phase 13 (b): the training batch, 4 x 32 positions (paligemma's 256 patches
+#: go ahead of its 32 tokens); qwen3 trains on 4 x 512 so that T * top_k =
+#: 16,384 > 8,192 takes the MoE capacity path
+ZOO_BATCH, ZOO_SEQ = 4, {"qwen3-moe-235b-a22b": 512}
+#: phase 13 (c): the configs whose requests also run through Engine ticks
+ZOO_ENGINE = ("mixtral-8x22b", "qwen3-moe-235b-a22b", "zamba2-7b", "xlstm-1.3b")
+#: phase 13 (c): serving consistency, decode at S against the forward at S + 1.
+#: In bf16 every logit within ZOO_SERVE_BF16_TOL x (1 + |logit|), the
+#: rtol = atol = 0.15 of tests/test_models_smoke.py; on a float32 copy of the
+#: full-width weights within ZOO_SERVE_TOL of max(1, |logit|)
+ZOO_SERVE_BF16_TOL, ZOO_SERVE_TOL = 0.15, 1e-2
+#: phase 13 (c): configs whose bf16 consistency is reported, not held: 48
+#: xLSTM layers amplify bf16 rounding to 11-40 % of the logits' norm (float32:
+#: 0.03-0.07 %; NVIDIA H100 80GB HBM3, 700.00 W), and the reference's own bf16
+#: drifts as far at that depth (tests/test_torch_families.py::
+#: test_xlstm_bf16_decode_at_full_depth_drifts_as_the_reference)
+ZOO_BF16_DRIFT = ("xlstm-1.3b",)
+#: phase 13 (a): card vs CPU on a narrow float32 copy, relative to max(1, |x|)
+ZOO_F32_TOL = 1e-3
+#: phase 13 (d): each capture's sample, and the dump suite's bytes a family
+ZOO_CAPTURE_BYTES, ZOO_SUITE_BYTES = 64 << 20, 16 << 20
+#: phase 13 (e): kernel C at these configs' attention geometries, over the
+#: K/V that layer 0 writes for a 2,048-token prompt at batch 4
+ZOO_ATTN, ZOO_PROMPT = ("mixtral-8x22b", "qwen3-moe-235b-a22b", "paligemma-3b",
+                        "musicgen-large"), 2048
+
+
+def zoo_batch(cfg, batch: int, seq: int, card, seed: int = SEED) -> dict:
+    """A seeded batch of ``seq`` text positions in the family's layout on
+    ``card``: token ids from ``TokenPipeline``; paligemma's 256 patch
+    embeddings ahead of them; musicgen's frame embeddings and 4 codebook
+    targets."""
+    import torch
+
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    if cfg.family == "audio":
+        return {"frame_embeds": torch.randn(batch, seq, cfg.d_model, generator=gen, device=card),
+                "targets": torch.randint(0, cfg.vocab_size, (batch, seq, cfg.n_codebooks),
+                                         generator=gen, device=card)}
+    toks = TokenPipeline(PipelineConfig(cfg.vocab_size, seq, batch, seed=seed)).batch_at(0)
+    out = {"tokens": torch.as_tensor(toks["tokens"], device=card)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.randn(batch, cfg.n_patches, cfg.d_model, generator=gen,
+                                          device=card)
+    return out
+
+
+def _next_input(cfg, logits, card, gen) -> dict:
+    """A decode step's input: the greedy tokens (audio: fresh frames)."""
+    import torch
+
+    if cfg.family == "audio":
+        return {"frame_embeds": torch.randn(logits.shape[0], 1, cfg.d_model, generator=gen,
+                                            device=card)}
+    return {"tokens": logits[:, -1].float().argmax(-1)[:, None]}
+
+
+def zoo_parity(card, arch: str) -> None:
+    """Phase 13 (a): the reduced float32 copy of ``arch`` from one CPU init,
+    carried to ``card``: logits, loss, a prefill and one decode step equal
+    the CPU's within :data:`ZOO_F32_TOL` of max(1, |x|) (the loss: 1e-5
+    relative)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.api import build_model
+
+    cfg = dc.replace(reduced(ARCHS[arch]), dtype="float32")
+    models = {"cpu": build_model(cfg, "cpu")}
+    models["cpu"].init(torch.Generator().manual_seed(SEED))
+    models["card"] = build_model(cfg, card)
+    models["card"].set_params(interop.params_from_numpy(
+        interop.params_to_numpy(models["cpu"].params()), card))
+    batch = zoo_batch(cfg, 2, 32, "cpu")
+    out, step = {}, None
+    for where, m in models.items():            # the CPU first: its step feeds both
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        with torch.no_grad():
+            cache, pre = m.prefill(b, m.init_cache(2, 34))
+            step = step or ({"frame_embeds": batch["frame_embeds"][:, :1]}
+                            if cfg.family == "audio" else _next_input(cfg, pre, "cpu", None))
+            dec, _ = m.decode_step({k: v.to(m.device) for k, v in step.items()}, cache, 32)
+            out[where] = {"logits": m.forward(b), "prefill": pre, "decode": dec,
+                          "loss": m.loss(b)[0]}
+            out[where] = {k: v.float().cpu() for k, v in out[where].items()}
+    errs = []
+    for name in ("logits", "prefill", "decode"):
+        a, b = out["card"][name], out["cpu"][name]
+        err = float((a - b).abs().max())
+        errs.append(f"{name} {err:.3g}")
+        if not err <= ZOO_F32_TOL * max(1.0, float(b.abs().max())):
+            raise AssertionError(f"[13a] {arch}: card vs CPU {name} differ by {err}")
+    lc, lp = float(out["card"]["loss"]), float(out["cpu"]["loss"])
+    if not abs(lc - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"[13a] {arch}: loss card {lc} vs CPU {lp}")
+    log(f"[13a] {arch} reduced float32 ({cfg.n_layers} layers, d_model {cfg.d_model}), one CPU "
+        f"init carried to the card: max |card - CPU| {', '.join(errs)}; loss {lc:.6f} vs "
+        f"{lp:.6f}")
+
+
+def zoo_train(card, model, batch: dict) -> dict:
+    """Phase 13 (b): two steps of the port's train step
+    (``make_train_step``: loss, backward, the in-place AdamW update) on the
+    full-width ``model``, from fresh AdamW moments; each step's loss and
+    gradient norm finite (the norm is finite only if every gradient is),
+    then every parameter finite.  Returns the steps' losses, gradient norms
+    and times (ms, host clock around synchronised steps) and the peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import path_str, tree_flatten_with_path
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_step
+
+    params = model.params()
+    state = adamw.init_state(params)
+    step = train_step.make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                               total_steps=10))
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for i in range(2):
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize(card)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        if not (np.isfinite(out["loss"][-1]) and np.isfinite(out["grad_norm"][-1])):
+            raise AssertionError(f"[13b] {model.cfg.arch_id}: step {i + 1} loss "
+                                 f"{out['loss'][-1]}, gradient norm {out['grad_norm'][-1]}")
+    bad = [path_str(k) for k, p in tree_flatten_with_path(params) if not bool(p.isfinite().all())]
+    if bad:
+        raise AssertionError(f"[13b] {model.cfg.arch_id}: non-finite parameters {bad}")
+    out["peak"] = torch.cuda.max_memory_allocated(card)
+    del state
+    return out
+
+
+def _decode_vs_forward(model, batch: dict, prefix: int, S: int, gen) -> tuple:
+    """Prefill ``batch``, three decode steps; returns (the cache, the step
+    logits, times in ms, max |decode at S - forward at S + 1|, that
+    forward's largest |logit|, relative L2 error per row, the largest
+    |decode - forward| / (1 + |forward|) of any logit)."""
+    import torch
+
+    cfg, card = model.cfg, model.device
+    times = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize(card)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(card)
+        times[label] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    cache, logits = timed("prefill", lambda: model.prefill(batch, model.init_cache(
+        ZOO_BATCH, prefix + S + 4)))
+    steps, outs = [], []
+    for i in range(3):
+        steps.append(_next_input(cfg, logits, card, gen))
+        logits, cache = timed(f"decode{i}", lambda: model.decode_step(steps[-1], cache,
+                                                                      prefix + S + i))
+        if not bool(logits.float().isfinite().all()):
+            raise AssertionError(f"[13c] {cfg.arch_id}: decode step {i} logits not finite")
+        outs.append(logits)
+    if cfg.family == "audio":
+        full = {"frame_embeds": torch.cat([batch["frame_embeds"], steps[0]["frame_embeds"]], 1),
+                "targets": torch.nn.functional.pad(batch["targets"], (0, 0, 0, 1))}
+    else:
+        full = {**batch, "tokens": torch.cat([batch["tokens"], steps[0]["tokens"]], 1)}
+    with torch.no_grad():
+        fwd = model.forward(full)[:, -1].float()
+    d = outs[0][:, 0].float() - fwd
+    rel = (d.flatten(1).norm(dim=1) / fwd.flatten(1).norm(dim=1)).tolist()
+    worst = float((d.abs() / (1 + fwd.abs())).max())
+    return cache, outs, times, float(d.abs().max()), float(fwd.abs().max()), rel, worst
+
+
+def zoo_serve(card, model) -> tuple[dict, dict]:
+    """Phase 13 (c): prefill of the training batch's shape and three greedy
+    decode steps (timed); serving consistency, the first step held to the
+    forward at S + 1: in bf16 within :data:`ZOO_SERVE_BF16_TOL` (but for
+    :data:`ZOO_BF16_DRIFT`, reported), and on a float32 copy of the
+    (trained) weights within :data:`ZOO_SERVE_TOL` of max(1, |logit|); for
+    :data:`ZOO_ENGINE`, three requests through ``Engine`` ticks.  Returns
+    (the bf16 serving cache, times in ms)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = model.cfg
+    S = 32
+    batch = zoo_batch(cfg, ZOO_BATCH, S, card, seed=SEED + 1)
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    cache, _, times, err16, _, rel16, worst16 = _decode_vs_forward(
+        model, batch, prefix, S, torch.Generator(device=card).manual_seed(SEED))
+    if cfg.arch_id not in ZOO_BF16_DRIFT and not worst16 <= ZOO_SERVE_BF16_TOL:
+        raise AssertionError(f"[13c] {cfg.arch_id}: bf16 decode at {prefix + S} differs from the "
+                             f"forward at {prefix + S + 1} by {worst16} x (1 + |logit|)")
+    f32 = build_model(dc.replace(cfg, dtype="float32"), card)
+    f32.set_params(tree_map(lambda p: p.detach().float(), model.params()))
+    _, _, _, err, scale, rel, _ = _decode_vs_forward(
+        f32, batch, prefix, S, torch.Generator(device=card).manual_seed(SEED))
+    del f32
+    torch.cuda.empty_cache()
+    if not err <= ZOO_SERVE_TOL * max(1.0, scale):
+        raise AssertionError(f"[13c] {cfg.arch_id}: float32 decode at {prefix + S} differs from "
+                             f"the forward at {prefix + S + 1} by {err} (largest |logit| {scale})")
+    log(f"[13c] {cfg.arch_id}: prefill of {ZOO_BATCH} x {prefix + S} {times['prefill']:.1f} ms, "
+        "decode " + ", ".join(f"{times[f'decode{i}']:.1f}" for i in range(3)) + " ms a step "
+        f"(bf16); decode at {prefix + S} vs the forward at {prefix + S + 1}, float32 copy: max "
+        f"|diff| {err:.4g} of {scale:.4g}, relative L2 a row {max(rel):.3g} (tolerance "
+        f"{ZOO_SERVE_TOL} of max(1, |logit|)); bf16: max |diff| {err16:.4g}, "
+        f"{worst16:.4g} x (1 + |logit|) ("
+        + ("reported only" if cfg.arch_id in ZOO_BF16_DRIFT else f"tolerance {ZOO_SERVE_BF16_TOL}")
+        + f"), relative L2 a row {min(rel16):.3g}-{max(rel16):.3g} ({card_tag(card)})")
+    if cfg.arch_id in ZOO_ENGINE:
+        rng = np.random.default_rng(SEED)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, 12).astype(np.int32), max_new=4)
+                for i in range(3)]
+        eng = Engine(model, batch_slots=4, max_len=32)
+        t0 = time.perf_counter()
+        eng.admit(reqs)
+        ticks = 0
+        while eng.tick():
+            ticks += 1
+        if not all(r.done and len(r.out) == 4 for r in reqs):
+            raise AssertionError(f"[13c] {cfg.arch_id}: engine outputs {[r.out for r in reqs]}")
+        log(f"[13c] {cfg.arch_id}: Engine(batch_slots=4): 3 requests of 12 tokens, 4 new each, "
+            f"in {ticks + 1} ticks, {(time.perf_counter() - t0) * 1e3:.1f} ms ({card_tag(card)}); "
+            f"tokens {[r.out for r in reqs]}")
+        del eng
+    return cache, times
+
+
+def zoo_attention(card, model, counted: dict) -> tuple[dict, object]:
+    """Phase 13 (e): a 2,048-token prompt at batch 4 (paligemma: 256 patches
+    + 1,792 tokens) prefilled into ``model``, three greedy decode steps; layer
+    0's K/V into a ``KVSession`` built from ``model.kv_cache_spec``, whose
+    three steps (append + kernel C) are the counted path; at each step
+    kernel C against its plain version within ``ATTN_TOL`` and the step
+    against SDPA over the raw cache; then C and SDPA timed.  Adds the
+    session's launches to ``counted``; returns the geometry's row and the
+    prompt's serving cache captured and sampled (:func:`sampled_image`)."""
+    import torch
+
+    from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
+    from repro_torch.eval import run as eval_run
+    from repro_torch.kernels import gbdi_decode as dec_mod
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.engine import KVSession
+
+    cfg = model.cfg
+    Kv, hd, H = cfg.n_kv_heads, cfg.head_dim_, cfg.n_heads
+    G, B, T, steps = H // Kv, ZOO_BATCH, ZOO_PROMPT, 3
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    gen = torch.Generator(device=card).manual_seed(SEED + 2)
+    batch = zoo_batch(cfg, B, T - prefix, card, seed=SEED + 2)
+    cache, logits = model.prefill(batch, model.init_cache(B, T + steps))
+    for i in range(steps):
+        logits, cache = model.decode_step(_next_input(cfg, logits, card, gen), cache, T + i)
+    image = sampled_image(cache, f"{cfg.arch_id}-cache",
+                          f"capture_pytree({cfg.arch_id} serving cache, {T + steps} tokens)",
+                          ZOO_CAPTURE_BYTES)
+    layer0 = cache["periods"]["slot0"]
+    ks, vs = layer0["k"][0], layer0["v"][0]                       # (B, T + 3, Kv, hd)
+    del cache, logits
+    spec = model.kv_cache_spec(T + steps)
+    sample = torch.cat([ks[0, :32].reshape(-1), vs[0, :32].reshape(-1)])
+    table = fit_fr_bases(bf16_to_words(sample), spec.fr)
+    qs = torch.randn(steps, B, 1, H, hd, generator=gen, device=card)
+    sess = KVSession(spec, B, table, device=card)
+    mods = {"gbdi_encode": enc_mod, "gbdi_decode": dec_mod, "gbdi_paged_attn": pa_mod}
+
+    def count(fn):
+        before = {k: m.launch_count for k, m in mods.items()}
+        out = fn()
+        for k, m in mods.items():
+            counted[k] += m.launch_count - before[k]
+        return out
+
+    count(lambda: sess.prefill(ks[:, :T], vs[:, :T]))
+    geom = dict(n_kv=Kv, hd=hd, groups=G)
+    errs = {"out": 0.0, "m": 0.0, "l": 0.0, "sdpa": 0.0}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i in range(steps):
+        pos = T + i
+        out = count(lambda: sess.step(qs[i], ks[:, pos:pos + 1], vs[:, pos:pos + 1]))
+        c = sess.cache
+        qg = qs[i].reshape(B, Kv, G, hd).contiguous()
+        got = pa_mod.paged_attention_decode(qg, c["k_pages"], c["v_pages"], c["table"], pos,
+                                            spec.fr, **geom)
+        want = pa_mod.paged_attention_decode_plain(qg, c["k_pages"], c["v_pages"], c["table"],
+                                                   pos, spec.fr, **geom)
+        for k, v in attn_errors(*got, *want).items():
+            errs[k] = max(errs[k], v)
+        if any(errs[k] > ATTN_TOL[k] for k in ATTN_TOL):
+            raise AssertionError(f"[13e] {cfg.arch_id} step {i}: kernel C vs plain {errs}")
+        ref = sdpa(qs[i].reshape(B, H, 1, hd).to(torch.bfloat16),
+                   ks[:, :pos + 1].permute(0, 2, 1, 3), vs[:, :pos + 1].permute(0, 2, 1, 3),
+                   enable_gqa=True).reshape(B, 1, H * hd)
+        errs["sdpa"] = max(errs["sdpa"], float((out.float() - ref.float()).abs().max()))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=1.6e-2, atol=1e-2)
+    # times at the last position, over its full pages (CUDA events, median of 10)
+    pos, pt = T + steps - 1, spec.page_tokens
+    n_valid = pos // pt
+    S = n_valid * pt
+    qg = qs[-1].reshape(B, Kv, G, hd).contiguous()
+    c = sess.cache
+
+    def median_ms(fn):
+        fn()
+        ts = []
+        for _ in range(TIMING_REPEATS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        return sorted(ts)[len(ts) // 2]
+
+    c_ms = median_ms(lambda: pa_mod.paged_attention_decode(qg, c["k_pages"], c["v_pages"],
+                                                           c["table"], pos, spec.fr, **geom))
+    Kr = ks[:, :S].permute(0, 2, 1, 3).contiguous()
+    Vr = vs[:, :S].permute(0, 2, 1, 3).contiguous()
+    qh = qs[-1].reshape(B, H, 1, hd).to(torch.bfloat16)
+    sdpa_ms = median_ms(lambda: sdpa(qh, Kr, Vr, enable_gqa=True))
+    fr = spec.fr
+    page_bytes = 4 * (fr.ptr_lanes + fr.delta_lanes + 2 * fr.outlier_cap + 1)
+    pa_bytes = 2 * B * n_valid * spec.pages_per_row * page_bytes + qg.numel() * 4 \
+        + B * H * (hd + 2) * 4
+    ops_ms = (4.0 * B * H * S * hd / F32_OPS_S
+              + 4.0 * 2 * B * n_valid * spec.pages_per_row * fr.page_words / INT_OPS_S) * 1e3
+    bytes_ms = pa_bytes / eval_run.peak_bytes_s(torch.cuda.get_device_name(card)) * 1e3
+    row = {"arch": cfg.arch_id, "Kv": Kv, "G": G, "hd": hd, "page_tokens": pt,
+           "slots_a_pass": pa_mod.pass_slots(fr, **geom), "ms": c_ms, "sdpa_ms": sdpa_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **errs}
+    log(f"[13e] {cfg.arch_id}: kernel C at B={B} Kv={Kv} G={G} hd={hd} ({pt} tokens a page, "
+        f"{row['slots_a_pass']} slots a pass, {n_valid} full pages): {c_ms:.4f} ms, SDPA over "
+        f"the same {S} tokens raw {sdpa_ms:.4f} ms (C {c_ms / sdpa_ms:.2f}x; medians of "
+        f"{TIMING_REPEATS}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}; vs plain max "
+        f"|acc/l| {errs['out']:.3g}, m {errs['m']:.3g}, l {errs['l']:.3g}; step vs SDPA "
+        f"{errs['sdpa']:.3g} ({card_tag(card)})")
+    del sess, ks, vs, Kr, Vr
+    return row, image
+
+
+def sampled_image(tree, name: str, source: str, n_bytes: int):
+    """``capture_pytree(tree)`` sampled to at most ``n_bytes`` (whole pages,
+    the ingest CLI's seeded sample) as one-segment image ``name``."""
+    import numpy as np
+
+    from repro_torch.eval import ingest
+
+    full = ingest.capture_pytree(tree, name)
+    words = ingest.sample_stream(full, min(n_bytes, full.n_bytes), 0)
+    return ingest.DumpImage(
+        name=name, segments=[ingest.Segment(name="sample", data=words.view(np.uint8),
+                                            note=f"pages of {len(full.segments)} leaves")],
+        word_bits=full.word_bits, source=source,
+        meta={**full.meta, "sampled_from": full.n_bytes})
+
+
+def image_family(image):
+    """``image`` as a ``dump:<name>`` family, as ``ingest.dump_workload``
+    registers a saved container (here without the container's round trip
+    through compressed ``.npz``, which phase 9 exercises)."""
+    from repro_torch.eval import ingest
+    from repro_torch.eval.registry import Workload
+
+    return Workload(name=ingest.DUMP_PREFIX + image.name, kind=ingest.DUMP_KIND,
+                    generate=lambda n, seed: ingest.sample_stream(image, n, seed),
+                    word_bits=image.word_bits,
+                    description=f"real dump (pytree, {image.n_bytes} B) from {image.source}")
+
+
+def model_zoo(card) -> dict:
+    """Phase 13: each config of :data:`ZOO` in turn, freed before the next:
+    (a) :func:`zoo_parity`; (b) at its published width and the depth in
+    :data:`ZOO`, :func:`zoo_train`; (c) :func:`zoo_serve`; (e) for
+    :data:`ZOO_ATTN`, :func:`zoo_attention`, and zamba2's ``KVSpec``
+    refused; the trained parameters and the serving cache (for
+    :data:`ZOO_ATTN`, the 2,048-token prompt's) captured and sampled to
+    :data:`ZOO_CAPTURE_BYTES`.  Then (d): the captures as ``dump:<name>``
+    families, ``evaluate(suite="dump")`` over gbdi, bdi and fr at
+    :data:`ZOO_SUITE_BYTES`, every cell verified, and each family held to
+    the CPU at ``CHECK_BYTES``.  Returns the launches of the counted path
+    (the sessions' prefill and steps, the dump suite) and kernel C's rows."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.eval import run as eval_run
+    from repro_torch.eval.codecs import default_codecs
+    from repro_torch.eval.registry import WorkloadRegistry
+    from repro_torch.kernels import gbdi_decode as dec_mod
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.models.api import build_model
+
+    counted = {"gbdi_encode": 0, "gbdi_decode": 0, "gbdi_paged_attn": 0}
+    images, attn_rows = [], []
+    for arch, layers in ZOO.items():
+        t_arch = time.perf_counter()
+        zoo_parity(card, arch)
+        cfg = dc.replace(get_config(arch), n_layers=layers)
+        model = build_model(cfg, card)
+        model.init(torch.Generator(device=card).manual_seed(SEED))
+        n_params = sum(p.numel() for p in model.parameters())
+        seq = ZOO_SEQ.get(arch, 32)
+        tr = zoo_train(card, model, zoo_batch(cfg, ZOO_BATCH, seq, card))
+        log(f"[13b] {arch} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {layers} of "
+            f"{get_config(arch).n_layers} layers, {n_params} parameters: batch {ZOO_BATCH} x "
+            f"{seq}{' + 256 patches' if cfg.family == 'vlm' else ''}; two make_train_step "
+            f"steps (loss, backward, in-place AdamW): {tr['ms'][0]:.1f} / {tr['ms'][1]:.1f} ms, "
+            f"loss {tr['loss'][0]:.4f} / {tr['loss'][1]:.4f}, grad norm "
+            f"{tr['grad_norm'][0]:.4f} / {tr['grad_norm'][1]:.4f}; peak memory {tr['peak']} B "
+            f"(host clock, synchronised; {card_tag(card)})")
+        images.append(sampled_image(model.params(), f"{arch}-params",
+                                    f"capture_pytree({arch}, {layers} layers, trained 2 steps)",
+                                    ZOO_CAPTURE_BYTES))
+        cache, _ = zoo_serve(card, model)
+        if arch in ZOO_ATTN:
+            del cache
+            torch.cuda.empty_cache()
+            row, image = zoo_attention(card, model, counted)
+            attn_rows.append(row)
+        else:
+            image = sampled_image(cache, f"{arch}-cache", f"capture_pytree({arch} serving cache)",
+                                  ZOO_CAPTURE_BYTES)
+            del cache
+        images.append(image)
+        if arch == "zamba2-7b":
+            try:
+                model.kv_cache_spec(ZOO_PROMPT).page_tokens
+            except ValueError as e:
+                log(f"[13e] {arch}: kv_cache_spec refused, as the reference asserts: {e}")
+            else:
+                raise AssertionError(f"[13e] {arch}: a {cfg.n_kv_heads * cfg.head_dim_}-word "
+                                     "row was accepted")
+        del model
+        torch.cuda.empty_cache()
+        log(f"[13] {arch} in {time.perf_counter() - t_arch:.1f} s ({card_tag(card)})")
+
+    reg = WorkloadRegistry([image_family(img) for img in images])
+    t0 = time.perf_counter()
+    before = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    cells = eval_run.evaluate(reg, default_codecs(str(card)), suite="dump", codecs="gbdi,bdi,fr",
+                              n_bytes=ZOO_SUITE_BYTES, seed=0, repeats=1)
+    counted["gbdi_encode"] += enc_mod.launch_count - before["gbdi_encode"]
+    counted["gbdi_decode"] += dec_mod.launch_count - before["gbdi_decode"]
+    bad = [f"{c.workload}/{c.codec}: {c.error}" for c in cells if not c.verified]
+    if bad or len(cells) != 3 * len(images):
+        raise AssertionError(f"[13d] {len(cells)} cells, failed: {bad}")
+    log(f"[13d] evaluate(suite='dump', codecs='gbdi,bdi,fr') over {len(images)} families at "
+        f"{ZOO_SUITE_BYTES} B: {len(cells)} cells verified in {time.perf_counter() - t0:.1f} s "
+        f"({card_tag(card)})")
+    log(eval_run.format_table(cells))
+    for line in eval_run.csv_lines(cells):
+        log(line)
+    t0 = time.perf_counter()
+    hold_to_cpu(list(reg), card, CHECK_BYTES, "13d")
+    log(f"[13d] {len(images)} families x 3 codecs held to the CPU in "
+        f"{time.perf_counter() - t0:.1f} s ({card_tag(card)})")
+    return {"launches": counted, "attn": attn_rows}
+
+
 def _loss_backward(model, batch) -> float:
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)[0]
@@ -1606,14 +2122,7 @@ def main() -> int:
             q, pk, pv, table, pos, cfg, **geom)))
         pacc, pm, pl = box["p"]
         live = pl > 0
-        dead = ~live
-        if not ((m[dead] == pa_mod.MASKED).all() and (l[dead] == 0).all()
-                and (acc[dead] == 0).all()):
-            raise AssertionError(f"{label}: a row with no valid token is not (0, -1e30, 0)")
-        err = {"out": float((acc[live] / l[live][:, None] - pacc[live] / pl[live][:, None])
-                            .abs().max()) if live.any() else 0.0,
-               "m": float(((m - pm).abs() / (1 + pm.abs())).max()),
-               "l": float(((l - pl).abs() / pl)[live].max()) if live.any() else 0.0}
+        err = attn_errors(acc, m, l, pacc, pm, pl)
         for k, v in err.items():
             attn_err[k] = max(attn_err[k], v)
         if any(err[k] > ATTN_TOL[k] for k in err):
@@ -1880,6 +2389,17 @@ def main() -> int:
         if front_launches[kname] <= 0 or ring_launches[kname] <= 0:
             raise AssertionError(f"{kname} was never launched in phase 12 (a) or (c)")
 
+    # -- phase 13: the model zoo -----------------------------------------------
+    t13 = time.perf_counter()
+    zoo = model_zoo(dev)
+    zoo_launches = zoo["launches"]
+    log(f"[13] phase-13 launches (the sessions' prefill and steps, the dump suite): "
+        f"{zoo_launches}; phase wall time {time.perf_counter() - t13:.1f} s ({smi})")
+    for kname, count in zoo_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{kname} was never launched in phase 13")
+    log("[13] kernel C at the new geometries: " + json.dumps(zoo["attn"]))
+
     replaces = {"gbdi_encode": "src/repro/kernels/gbdi_encode.py:292",
                 "gbdi_decode": "src/repro/kernels/gbdi_decode.py:148",
                 "gbdi_paged_attn": "src/repro/kernels/gbdi_paged_attn.py:160"}
@@ -1892,7 +2412,8 @@ def main() -> int:
             "replaces": replaces[kname],
             "launches": (launches[kname] + serve_launches[kname] + suite_launches[kname]
                          + dump_launches[kname] + ml_launches[kname] + serving_launches[kname]
-                         + front_launches[kname] + ring_launches[kname]),
+                         + front_launches[kname] + ring_launches[kname]
+                         + zoo_launches[kname]),
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })
@@ -1900,8 +2421,10 @@ def main() -> int:
         "name": "gbdi_paged_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbdi_paged_attn.cu",
         "replaces": replaces["gbdi_paged_attn"],
-        "launches": serve_launches["gbdi_paged_attn"] + serving_launches["gbdi_paged_attn"],
-        "max_abs_err": attn_err["out"], "ms": pa_ms, "plain_ms": pa_plain_ms,
+        "launches": (serve_launches["gbdi_paged_attn"] + serving_launches["gbdi_paged_attn"]
+                     + zoo_launches["gbdi_paged_attn"]),
+        "max_abs_err": max([attn_err["out"]] + [r["out"] for r in zoo["attn"]]),
+        "ms": pa_ms, "plain_ms": pa_plain_ms,
         "bound_ms": pa_bound, "bound_by": pa_bound_by, "library_ms": lib_ms,
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -2,7 +2,8 @@
 
 Copy of :mod:`repro.configs` for the PyTorch port: the same ten published
 configurations, as data.  :func:`repro_torch.models.api.build_model` builds
-the dense family; the others raise until they are ported.
+all ten: dense, moe (mixtral, qwen3), hybrid (zamba2), ssm (xlstm), vlm
+(paligemma) and audio (musicgen).
 """
 from __future__ import annotations
 

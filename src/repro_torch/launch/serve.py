@@ -5,8 +5,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Counterpart of :mod:`repro.launch.serve`.  The model is initialised from
-seed 0 on the device; prompts are 12 tokens drawn from seed 0.  A family the
-port does not build yet raises ``NotImplementedError``.
+seed 0 on the device; prompts are 12 tokens drawn from seed 0.  It serves
+the dense, moe, hybrid and ssm families; the stub-frontend families (vlm,
+audio) are refused, as the reference refuses them.
 """
 from __future__ import annotations
 

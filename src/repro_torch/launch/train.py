@@ -6,9 +6,11 @@
 
 Counterpart of :mod:`repro.launch.train`, with ``--device`` as the serve CLI
 has.  Checkpoints are GBDI-compressed and the run auto-resumes from the
-latest one (kill and re-run to verify).  The vlm and audio families are
-refused, as the reference refuses them; a family the port does not build
-yet raises ``NotImplementedError``.
+latest one (kill and re-run to verify).  It trains the dense, moe, hybrid
+and ssm families; the vlm and audio families are refused, as the reference
+refuses them.  xlstm-1.3b's mLSTM gradient goes NaN in both packages once
+a chunk's forget-gate decay overflows float32, from about 128 tokens
+(``ROADMAP.md`` §3).
 """
 from __future__ import annotations
 

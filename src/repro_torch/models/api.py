@@ -6,13 +6,17 @@
   cache, logits = model.prefill(batch, cache) # serving
   logits, cache = model.decode_step(step_in, cache, pos)
 
-PyTorch counterpart of :mod:`repro.models.api` for the dense family.  A
-:class:`Model` is an ``nn.Module`` whose parameters sit at the reference's
-tree paths (``embed``, ``final_norm.scale``, ``head``,
-``stack.periods.slot0.attn.wq``, ...); :meth:`Model.params` gives them back
-as the reference's nested dict and :meth:`Model.flatten_params` in its leaf
-order (dict keys sorted, as ``jax.tree.leaves`` walks them).  Batches are
-``{"tokens": (B, S) int}``, numpy or torch.
+PyTorch counterpart of :mod:`repro.models.api`, every family of the ten
+configs.  A :class:`Model` is an ``nn.Module`` whose parameters sit at the
+reference's tree paths (``embed``, ``final_norm.scale``, ``head``,
+``stack.periods.slot0.attn.wq``, ``stack.shared.mlp.wg``, ...);
+:meth:`Model.params` gives them back as the reference's nested dict and
+:meth:`Model.flatten_params` in its leaf order (dict keys sorted, as
+``jax.tree.leaves`` walks them).  Batch layouts by family, numpy or torch:
+
+  LM:    {"tokens": (B, S) int}                        labels = shifted tokens
+  vlm:   {"patch_embeds": (B, P, d), "tokens": (B, S-P)}  prefix-LM over patches
+  audio: {"frame_embeds": (B, S, d), "targets": (B, S, K)}  K codebook heads
 
 The cross-entropy is computed in sequence chunks so the full (B, S, V)
 logits tensor is never materialised.  Serving methods run under
@@ -41,9 +45,6 @@ from repro_torch.models.transformer import (
 
 if TYPE_CHECKING:
     from repro_torch.serving.kv_cache import KVSpec
-
-#: families the port can build; the rest are ROADMAP.md §1 item 12
-PORTED_FAMILIES = ("dense",)
 
 
 def _pick_chunk(S: int, target: int) -> int:
@@ -83,14 +84,11 @@ def _tree_of(module: nn.Module) -> Any:
 
 
 class Model(nn.Module):
-    """A dense transformer LM with the reference's parameter tree."""
+    """A model of any of the configs' families with the reference's
+    parameter tree."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES or cfg.n_codebooks or cfg.n_patches:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: family {cfg.family!r} is not ported to PyTorch yet "
-                "(ROADMAP.md §1 item 12); the port builds the dense family")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -102,11 +100,16 @@ class Model(nn.Module):
         cfg, dt, dev = self.cfg, self.dtype, self.device
         p: Params = {"stack": stack_init(generator, cfg, dt, dev),
                      "final_norm": rmsnorm_init(cfg.d_model, dt, dev)}
-        embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
-                            device=generator.device, dtype=torch.float32)
-        p["embed"] = (embed * 0.02).to(device=dev, dtype=dt)
+        if cfg.family != "audio":
+            embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
+                                device=generator.device, dtype=torch.float32)
+            p["embed"] = (embed * 0.02).to(device=dev, dtype=dt)
         if not cfg.tied_embeddings:
-            p["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), dt, dev)
+            if cfg.n_codebooks:
+                p["head"] = dense_init(generator, (cfg.n_codebooks, cfg.d_model, cfg.vocab_size),
+                                       dt, dev, in_axis=1)
+            else:
+                p["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), dt, dev)
         return self.set_params(p)
 
     def set_params(self, tree: Params) -> Params:
@@ -129,23 +132,41 @@ class Model(nn.Module):
         return {path_str(path): leaf for path, leaf in tree_flatten_with_path(self.params())}
 
     # -- embedding / head ----------------------------------------------------
-    def _tokens(self, batch: dict) -> torch.Tensor:
-        tok = batch["tokens"]
-        if isinstance(tok, np.ndarray):
-            tok = torch.from_numpy(np.ascontiguousarray(tok))
-        return tok.to(device=self.device, dtype=torch.int64)
+    def _tensor(self, x: Any, dtype: torch.dtype) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+
+    def _tokens(self, batch: dict, key: str = "tokens") -> torch.Tensor:
+        return self._tensor(batch[key], torch.int64)
+
+    def _embed_inputs(self, p: Params, batch: dict) -> tuple[torch.Tensor, int]:
+        """(input embeddings, prefix length): audio takes its frame
+        embeddings as they come; vlm puts its patch embeddings ahead of the
+        tokens as a bidirectional prefix (absent in decode)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return self._tensor(batch["frame_embeds"], self.dtype), 0
+        tok = p["embed"][self._tokens(batch)]
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = torch.cat([self._tensor(batch["patch_embeds"], tok.dtype), tok], dim=1)
+            return x, cfg.n_patches
+        return tok, 0
 
     def _head(self, p: Params, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tied_embeddings:
             return torch.einsum("bsd,vd->bsv", h, p["embed"])
+        if self.cfg.n_codebooks:
+            return torch.einsum("bsd,kdv->bskv", h, p["head"])
         return torch.einsum("bsd,dv->bsv", h, p["head"])
 
     # -- forward ------------------------------------------------------------
     def hidden(self, batch: dict, *, cache: Params | None = None, cache_pos: Any = None,
-               mode: str = "train") -> tuple[torch.Tensor, Params | None, torch.Tensor]:
-        """(final-norm hidden states, new cache or None, aux loss)."""
+               mode: str = "train") -> tuple[torch.Tensor, Params | None, torch.Tensor, int]:
+        """(final-norm hidden states, new cache or None, aux loss, prefix length)."""
         cfg, p = self.cfg, self.params()
-        x = constrain_batch(p["embed"][self._tokens(batch)], cfg)
+        x, prefix_len = self._embed_inputs(p, batch)
+        x = constrain_batch(x, cfg)
         S = x.shape[1]
         if mode == "decode":
             if getattr(cache_pos, "ndim", 0) > 0:
@@ -157,21 +178,27 @@ class Model(nn.Module):
                 positions = torch.tensor([cache_pos], dtype=torch.int64, device=self.device)
         else:
             positions = torch.arange(S, dtype=torch.int64, device=self.device)
-        x, new_cache, aux = stack_apply(p["stack"], cfg, x, positions, cache=cache,
-                                        cache_pos=cache_pos)
-        return rmsnorm(p["final_norm"], x, cfg.norm_eps), new_cache, aux
+        x, new_cache, aux = stack_apply(p["stack"], cfg, x, positions, prefix_len=prefix_len,
+                                        cache=cache, cache_pos=cache_pos, mode=mode)
+        return rmsnorm(p["final_norm"], x, cfg.norm_eps), new_cache, aux, prefix_len
 
     def forward(self, batch: dict) -> torch.Tensor:
-        h, _, _ = self.hidden(batch)
+        h, _, _, _ = self.hidden(batch)
         return self._head(self.params(), h)
 
     # -- loss (seq-chunked CE) -----------------------------------------------
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         cfg, p = self.cfg, self.params()
-        h, _, aux = self.hidden(batch, mode="train")
+        h, _, aux, prefix_len = self.hidden(batch, mode="train")
         # next-token targets via roll + zero weight on the last position, so
         # the chunks see the full (divisible) sequence length
-        t_in = torch.roll(self._tokens(batch), -1, dims=1).clamp_min(0)
+        if cfg.family == "audio":
+            t_in = torch.roll(self._tokens(batch, "targets"), -1, dims=1)
+        else:
+            if cfg.family == "vlm":
+                h = h[:, prefix_len:]
+            t_in = torch.roll(self._tokens(batch), -1, dims=1)
+        t_in = t_in.clamp_min(0)
         B, S = h.shape[:2]
         w_in = torch.ones((S,), dtype=torch.float32, device=h.device)
         w_in[-1] = 0.0
@@ -183,8 +210,11 @@ class Model(nn.Module):
             logits = self._head(p, constrain_batch(hc, cfg)).float()
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, tc[..., None])[..., 0]
-            total = total + ((logz - gold) * wc[None, :]).sum()
-        denom = B * (S - 1)
+            nll = logz - gold
+            if nll.ndim == 3:  # codebook heads: (B, C, K)
+                nll = nll.sum(-1)
+            total = total + (nll * wc[None, :]).sum()
+        denom = B * (S - 1) * max(1, cfg.n_codebooks)
         return total / denom + 0.01 * aux, {"ce": total / denom, "aux": aux}
 
     # -- serving ------------------------------------------------------------
@@ -213,7 +243,7 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache: Params) -> tuple[Params, torch.Tensor]:
-        h, new_cache, _ = self.hidden(batch, cache=cache, mode="prefill")
+        h, new_cache, _, _ = self.hidden(batch, cache=cache, mode="prefill")
         return new_cache, self._head(self.params(), h[:, -1:])
 
     def merge_cache_rows(self, old: Params, new: Params, keep_new: torch.Tensor) -> Params:
@@ -244,14 +274,15 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, step_in: dict, cache: Params, pos: Any) -> tuple[torch.Tensor, Params]:
-        """step_in: {"tokens": (B, 1)}.  ``pos`` is a scalar (shared decode
-        position) or a (B,) vector of per-slot positions (continuous batching
-        with staggered admits)."""
-        h, new_cache, _ = self.hidden(step_in, cache=cache, cache_pos=pos, mode="decode")
+        """step_in: {"tokens": (B, 1)} (LM, vlm) or {"frame_embeds": (B, 1, d)}
+        (audio).  ``pos`` is a scalar (shared decode position) or a (B,)
+        vector of per-slot positions (continuous batching with staggered
+        admits)."""
+        h, new_cache, _, _ = self.hidden(step_in, cache=cache, cache_pos=pos, mode="decode")
         return self._head(self.params(), h), new_cache
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
     """A :class:`Model` on ``device`` (the CUDA card unless ``"cpu"`` is
-    asked for); raises ``NotImplementedError`` for a family not ported yet."""
+    asked for)."""
     return Model(cfg, device)

@@ -1,20 +1,21 @@
 """Pattern-aware layer stack: periods stacked on a leading axis.
 
-PyTorch counterpart of :mod:`repro.models.transformer` for the dense family
-(``attn`` and ``local`` mixers, ``mlp`` or no ffn).  Layers are grouped into
-the config's repeating ``pattern`` (e.g. gemma3's 5 local + 1 global).
-Parameters of full repetitions are stacked with a leading ``n_periods`` axis,
-as the reference stacks them for its ``lax.scan``, so every parameter has
-the reference's shape; the port walks the periods in a Python loop.
-Leftover layers are kept per layer (``tail``).  KV caches mirror the same
-structure.  The other mixers (mamba, mLSTM, sLSTM, zamba2's shared
-attention) and the MoE ffn are ``ROADMAP.md`` §1 item 12 and raise.
+PyTorch counterpart of :mod:`repro.models.transformer`.  Layers are grouped
+into the config's repeating ``pattern`` (e.g. gemma3's 5 local + 1 global,
+zamba2's 6 mamba + 1 shared attention, xlstm's 7 mLSTM + 1 sLSTM).
+Parameters of full repetitions are stacked with a leading ``n_periods``
+axis, as the reference stacks them for its ``lax.scan``, so every parameter
+has the reference's shape; the port walks the periods in a Python loop.
+Leftover layers are kept per layer (``tail``).  Caches mirror the same
+structure.  zamba2's ``shared_attn`` slots share one weight set
+(``params["shared"]``) while each invocation keeps its own KV cache.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._tree import tree_map
+from repro_torch.models import mamba2, moe as moe_mod, xlstm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
     Params,
@@ -27,20 +28,8 @@ from repro_torch.models.layers import (
     rmsnorm_init,
 )
 
-ATTN_MIXERS = ("attn", "local")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md §1 item 12); the port "
-        "builds the dense family (attn/local mixers, mlp ffn)")
-
-
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in ATTN_MIXERS:
-        raise _not_ported(f"mixer {spec.mixer!r}")
-    if spec.ffn not in ("mlp", "none"):
-        raise _not_ported(f"ffn {spec.ffn!r}")
+#: mixers that own a (B, S, Kv, hd) KV cache
+ATTN_MIXERS = ("attn", "local", "shared_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -49,26 +38,55 @@ def _check_spec(spec: LayerSpec) -> None:
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
                device: torch.device) -> Params:
-    _check_spec(spec)
-    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, device),
-                 "attn": attn_init(gen, cfg, dtype, device)}
+    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, device)}
+    if spec.mixer in ("attn", "local"):
+        p["attn"] = attn_init(gen, cfg, dtype, device)
+    elif spec.mixer == "mamba":
+        p["mamba"] = mamba2.mamba_init(gen, cfg, dtype, device)
+    elif spec.mixer == "mlstm":
+        p["mlstm"] = xlstm.mlstm_init(gen, cfg, dtype, device)
+    elif spec.mixer == "slstm":
+        p["slstm"] = xlstm.slstm_init(gen, cfg, dtype, device)
+    # shared_attn: the weights live in params["shared"]
     if spec.ffn == "mlp":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    elif spec.ffn == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device)
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     return p
+
+
+def shared_block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                      device: torch.device) -> Params:
+    """zamba2's one attention + MLP block, run at every ``shared_attn`` slot."""
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attn_init(gen, cfg, dtype, device),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                      dtype: torch.dtype, device: torch.device) -> Params:
-    _check_spec(spec)
-    length = min(max_len, cfg.window) if spec.mixer == "local" else max_len
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if spec.mixer in ATTN_MIXERS:
+        length = min(max_len, cfg.window) if spec.mixer == "local" else max_len
+        shape = (batch, length, cfg.n_kv_heads, cfg.head_dim_)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if spec.mixer == "mamba":
+        return mamba2.mamba_cache_init(cfg, batch, dtype, device)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_cache_init(cfg, batch, device)
+    if spec.mixer == "slstm":
+        return xlstm.slstm_cache_init(cfg, batch, device)
+    raise ValueError(spec.mixer)
 
 
 def layer_apply(
     p: Params,
+    shared: Params | None,
     cfg: ModelConfig,
     spec: LayerSpec,
     x: torch.Tensor,
@@ -77,17 +95,38 @@ def layer_apply(
     prefix_len: int = 0,
     cache: Params | None = None,
     cache_pos: torch.Tensor | int | None = None,
+    mode: str = "train",
 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
-    """Returns (x, new_cache, aux_loss); the dense family's aux is 0."""
-    _check_spec(spec)
+    """Returns (x, new_cache, aux_loss); aux is the MoE ffn's, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    decode = mode == "decode"
+    if spec.mixer == "shared_attn":
+        h = rmsnorm(shared["norm1"], x, cfg.norm_eps)
+        attn_out, new_cache = attention_apply(shared["attn"], cfg, h, positions, cache=cache,
+                                              cache_pos=cache_pos, prefix_len=prefix_len)
+        x = x + attn_out
+        h = rmsnorm(shared["norm2"], x, cfg.norm_eps)
+        return x + mlp_apply(shared["mlp"], h), new_cache, aux
+
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    window = cfg.window if spec.mixer == "local" else 0
-    out, new_cache = attention_apply(p["attn"], cfg, h, positions, window=window,
-                                     prefix_len=prefix_len, cache=cache, cache_pos=cache_pos)
+    if spec.mixer in ("attn", "local"):
+        window = cfg.window if spec.mixer == "local" else 0
+        out, new_cache = attention_apply(p["attn"], cfg, h, positions, window=window,
+                                         prefix_len=prefix_len, cache=cache, cache_pos=cache_pos)
+    elif spec.mixer == "mamba":
+        out, new_cache = mamba2.mamba_apply(p["mamba"], cfg, h, cache=cache, decode=decode)
+    elif spec.mixer == "mlstm":
+        out, new_cache = xlstm.mlstm_apply(p["mlstm"], cfg, h, cache=cache, decode=decode)
+    elif spec.mixer == "slstm":
+        out, new_cache = xlstm.slstm_apply(p["slstm"], cfg, h, cache=cache, decode=decode)
+    else:
+        raise ValueError(spec.mixer)
     x = x + out
     if spec.ffn == "mlp":
         x = x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+    elif spec.ffn == "moe":
+        out, aux = moe_mod.moe_apply(p["moe"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps))
+        x = x + out
     return x, new_cache, aux
 
 
@@ -98,6 +137,8 @@ def layer_apply(
 def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
                device: torch.device) -> Params:
     p: Params = {}
+    if any(s.mixer == "shared_attn" for s in cfg.pattern):
+        p["shared"] = shared_block_init(gen, cfg, dtype, device)
     if cfg.n_periods:
         p["periods"] = {
             f"slot{si}": tree_map(lambda *xs: torch.stack(xs),
@@ -133,8 +174,10 @@ def stack_apply(
     prefix_len: int = 0,
     cache: Params | None = None,
     cache_pos: torch.Tensor | int | None = None,
+    mode: str = "train",
 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
-    """Returns (x, new_cache, aux_sum)."""
+    """Returns (x, new_cache, aux_sum): the aux losses summed over layers."""
+    shared = p.get("shared")
     has_cache = cache is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Params = {}
@@ -146,8 +189,9 @@ def stack_apply(
             for si, spec in enumerate(cfg.pattern):
                 lp = tree_map(lambda t: t[i], p["periods"][f"slot{si}"])
                 lc = tree_map(lambda t: t[i], cache["periods"][f"slot{si}"]) if has_cache else None
-                x, nc, a = layer_apply(lp, cfg, spec, x, positions, prefix_len=prefix_len,
-                                       cache=lc, cache_pos=cache_pos)
+                x, nc, a = layer_apply(lp, shared, cfg, spec, x, positions,
+                                       prefix_len=prefix_len, cache=lc, cache_pos=cache_pos,
+                                       mode=mode)
                 new_period[f"slot{si}"] = nc
                 aux = aux + a
             period_caches.append(new_period)
@@ -157,8 +201,8 @@ def stack_apply(
         new_cache["tail"] = []
     for i, spec in enumerate(cfg.tail_layers):
         lc = cache["tail"][i] if has_cache else None
-        x, nc, a = layer_apply(p["tail"][i], cfg, spec, x, positions, prefix_len=prefix_len,
-                               cache=lc, cache_pos=cache_pos)
+        x, nc, a = layer_apply(p["tail"][i], shared, cfg, spec, x, positions,
+                               prefix_len=prefix_len, cache=lc, cache_pos=cache_pos, mode=mode)
         aux = aux + a
         if has_cache:
             new_cache["tail"].append(nc)

@@ -3,8 +3,11 @@
 PyTorch counterpart of :mod:`repro.optim.adamw`: functions over parameter
 trees (nested dicts of tensors, walked in the reference's leaf order).  The
 state (m, v) is float32; parameters update in float32 and are cast back to
-their own dtype.  Nothing is updated in place: ``apply_updates`` returns new
-trees, as the reference does.
+their own dtype.  Unlike the reference, whose ``apply_updates`` returns new
+trees, :func:`apply_updates` writes the step into the trees it is given,
+in slices of :data:`SLICE` elements, so that a step needs no second copy of
+the parameters and moments (the difference between fitting a full-width MoE
+layer's training step on one card or not).
 """
 from __future__ import annotations
 
@@ -17,6 +20,10 @@ import torch
 from repro_torch._tree import tree_leaves, tree_map
 
 Params = Any
+
+#: elements of a leaf updated at a time: the float32 temporaries of one slice
+#: are all the memory a step needs beyond the trees
+SLICE = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,31 +60,38 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
 
 
+def _step_scalars(cfg: AdamWConfig, step: torch.Tensor, grads: Params) -> tuple[torch.Tensor, ...]:
+    """The step's scalars: (grad norm, clip scale, lr, bias corrections)."""
+    gn = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    return gn, scale, schedule(cfg, step), 1 - cfg.b1 ** step.float(), 1 - cfg.b2 ** step.float()
+
+
+def _update(cfg: AdamWConfig, scalars: tuple[torch.Tensor, ...], p: torch.Tensor,
+            g: torch.Tensor, m: torch.Tensor,
+            v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One leaf's (new param, m, v), elementwise."""
+    _, scale, lr, b1c, b2c = scalars
+    g = g.float() * scale
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    new_p = p.float() - lr * (u + cfg.weight_decay * p.float())
+    return new_p.to(p.dtype), m, v
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
                   state: dict) -> tuple[Params, dict, dict]:
-    """One AdamW step: (new params, new state, {"grad_norm", "lr"})."""
-    step = state["step"] + 1
-    gn = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-    lr = schedule(cfg, step)
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
-
-    def upd(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-            v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        new_p = p.float() - lr * (u + cfg.weight_decay * p.float())
-        return new_p.to(p.dtype), m, v
-
-    new = [upd(*leaves) for leaves in zip(*(tree_leaves(t) for t in
-                                            (params, grads, state["m"], state["v"])))]
-
-    def rebuild(i: int) -> Params:
-        it = iter([n[i] for n in new])
-        return tree_map(lambda _: next(it), params)
-
-    return rebuild(0), {"m": rebuild(1), "v": rebuild(2), "step": step}, {"grad_norm": gn, "lr": lr}
+    """One AdamW step, written in place into ``params`` and ``state``
+    (``state["step"]`` advanced).  Returns the same trees and
+    ``{"grad_norm", "lr"}``, in the reference's ``(params, state, metrics)``."""
+    state["step"] = state["step"] + 1
+    scalars = _step_scalars(cfg, state["step"], grads)
+    for p, g, m, v in zip(*(tree_leaves(t) for t in (params, grads, state["m"], state["v"]))):
+        flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
+        for s in range(0, p.numel(), SLICE):
+            part = [t[s:s + SLICE] for t in flat]
+            for dst, src in zip((part[0], part[2], part[3]), _update(cfg, scalars, *part)):
+                dst.copy_(src)
+    return params, state, {"grad_norm": scalars[0], "lr": scalars[2]}

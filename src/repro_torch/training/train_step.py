@@ -4,10 +4,11 @@ PyTorch counterpart of ``src/repro/training/train_step.py``, eager (no
 ``torch.compile``).  The model's loss runs through the port's
 :class:`~repro_torch.models.api.Model` API: the step registers the
 parameters it is given on the model, runs backward, and hands the
-gradients to :func:`repro_torch.optim.adamw.apply_updates`, which returns
-new trees.  With ``n_micro > 1`` the batch's leading axis is cut into
-micro-slices whose float32 gradients and losses are summed in slice order
-and divided by ``n_micro``, as the reference's ``lax.scan`` does.  With
+gradients to :func:`repro_torch.optim.adamw.apply_updates`, which writes the
+step into the parameter and optimizer trees in place and returns them.
+With ``n_micro > 1`` the batch's leading axis is cut into micro-slices
+whose float32 gradients and losses are summed in slice order and divided
+by ``n_micro``, as the reference's ``lax.scan`` does.  With
 ``compress_grads`` the gradients cross pods through the GBDI-FR ring of
 :mod:`repro_torch.distributed.collectives` before the update.
 """
@@ -26,11 +27,15 @@ TrainStep = Callable[[Any, dict, dict], tuple[Any, dict, dict]]
 
 
 def _grads(model: Model, batch: dict) -> tuple[torch.Tensor, Any]:
-    """(loss, gradient tree) of one batch on the model's registered params."""
+    """(loss, gradient tree) of one batch on the model's registered params.
+    A parameter the loss never reads (the norm of a zamba2 ``shared_attn``
+    slot, whose block runs on ``params["shared"]``) gets a zero gradient,
+    as ``jax.grad`` gives it."""
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)[0]
     loss.backward()
-    grads = tree_map(lambda p: p.grad, model.params())
+    grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                     model.params())
     model.zero_grad(set_to_none=True)
     return loss.detach(), grads
 
@@ -52,7 +57,8 @@ def make_train_step(
     fr_bases: Any = None,
 ) -> TrainStep:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``metrics`` holds ``loss``, ``grad_norm`` and ``lr``."""
+    metrics)``, which updates ``params`` and ``opt_state`` in place and
+    returns them; ``metrics`` holds ``loss``, ``grad_norm`` and ``lr``."""
 
     def compute_grads(batch: dict) -> tuple[torch.Tensor, Any]:
         if n_micro == 1:
@@ -75,10 +81,9 @@ def make_train_step(
             from repro_torch.distributed import collectives
 
             grads = collectives.compressed_crosspod_mean(grads, fr_bases)
-        new_params, new_state, opt_metrics = adamw.apply_updates(opt_cfg, model.params(),
-                                                                 grads, opt_state)
-        model.set_params(new_params)
-        return new_params, new_state, {"loss": loss, **opt_metrics}
+        params, opt_state, opt_metrics = adamw.apply_updates(opt_cfg, model.params(), grads,
+                                                             opt_state)
+        return params, opt_state, {"loss": loss, **opt_metrics}
 
     return train_step
 

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch._tree import tree_flatten_with_path
+from repro_torch._tree import tree_flatten_with_path, tree_map
 from repro_torch.distributed import collectives
 
 GRAD_SHAPES = {"w1": (4096,), "w2": (2048,), "b": (1000,), "h": (3, 700)}
@@ -76,7 +76,9 @@ def _rank_checks(rank: int, world: int, payload: dict) -> dict:
         0, host=rank, n_hosts=world)
     acfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     step = train_step.make_train_step(model, acfg, compress_grads=True, fr_bases=table)
-    new_params, _, metrics = step(params, state, batch)
+    # the step updates the trees it is given in place: keep the originals
+    new_params, _, metrics = step(tree_map(torch.clone, params), tree_map(torch.clone, state),
+                                  batch)
     out["step_params"] = interop.params_to_numpy(new_params)
     out["step_loss"] = float(metrics["loss"])
     model.set_params(params)

@@ -40,8 +40,6 @@ LEAVES = ["embed", "final_norm/scale", "head"] + [
     f"stack/periods/slot0/{k}" for k in ("attn/wk", "attn/wo", "attn/wq", "attn/wv", "mlp/wd",
                                          "mlp/wg", "mlp/wu", "norm1/scale", "norm2/scale")]
 DENSE = ("deepseek-7b", "gemma3-12b", "gemma3-27b", "llama3-405b")
-NOT_PORTED = ("mixtral-8x22b", "musicgen-large", "paligemma-3b", "qwen3-moe-235b-a22b",
-              "xlstm-1.3b", "zamba2-7b")
 
 
 @pytest.fixture(scope="module")
@@ -161,12 +159,6 @@ def test_parameter_tree_matches_reference(ref):
     fresh.init(torch.Generator().manual_seed(0))
     assert [tuple(p.shape) for p in fresh.flatten_params().values()] == \
         [tuple(p.shape) for p in flat.values()]
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_model_refuses_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(reduced(T_ARCHS[arch]), "cpu")
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -300,11 +292,11 @@ def test_adamw_keeps_dtypes_and_float32_moments(ref):
     params = tm.params()
     state = adamw.init_state(params)
     grads = params
+    norm = float(np.sqrt(sum((_f32(g) ** 2).sum() for g in tree_leaves(grads))))
     new, state, metrics = adamw.apply_updates(adamw.AdamWConfig(), params, grads, state)
     assert all(a.dtype == torch.bfloat16 for a in tree_leaves(new))
     assert all(m.dtype == torch.float32 for m in tree_leaves(state["m"]) + tree_leaves(state["v"]))
-    assert float(metrics["grad_norm"]) == pytest.approx(
-        float(np.sqrt(sum((_f32(g) ** 2).sum() for g in tree_leaves(grads)))), rel=1e-5)
+    assert float(metrics["grad_norm"]) == pytest.approx(norm, rel=1e-5)
     assert float(adamw.schedule(adamw.AdamWConfig(), torch.tensor(0))) == 0.0
 
 

@@ -234,11 +234,10 @@ def test_serve_cli_on_cpu(capsys, one_thread):
     assert lines == [f"req {r.rid}: {r.out}" for r in done]
 
 
-@pytest.mark.parametrize("arch, error", [("paligemma-3b", SystemExit),
-                                         ("xlstm-1.3b", NotImplementedError)])
+@pytest.mark.parametrize("arch, error", [("paligemma-3b", SystemExit)])
 def test_serve_cli_refuses_what_it_cannot_serve(arch, error):
-    """The stub-frontend families are refused as in the reference; a family
-    the port does not build yet raises ``NotImplementedError``."""
+    """The stub-frontend families are refused as in the reference (the
+    families the port builds are served in ``tests/test_torch_zoo_training.py``)."""
     from repro_torch.launch import serve
 
     with pytest.raises(error):
