@@ -113,13 +113,29 @@ Phases, in order; any failure exits non-zero before the final line:
    attention geometries of mixtral, qwen3, paligemma and musicgen over layer
    0's K/V of a 2,048-token prompt, against its plain version and SDPA,
    timed; zamba2's ``KVSpec`` refused.  Launches counted over the sessions
-   and the dump suite.
+   and the dump suite;
+14. the launch tools: (a) ``repro_torch.launch.dryrun`` on this machine's
+   host (fake tensors, nothing allocated) for every config at decode_32k and
+   long_500k (the reference's skips) and deepseek-7b at train_4k and
+   prefill_32k, both meshes, each cell's seconds and the ``roofline_torch``
+   tables printed, and every parameter leaf of every config dividing under
+   both meshes (:func:`dryrun_cells`); (b) deepseek-7b at full width (2
+   layers): one ``make_train_step`` step at 4 x 32, one prefill at 8 x 128
+   and one batch-8 decode step, each counted under ``FakeTensorMode`` and
+   live on the card (equal), timed, its share bound / time held to
+   :data:`SHARE_MAX` (:func:`count_on_card`); (c) a world of one under NCCL:
+   ``distribute_tree`` and ``ckpt.load(shardings=(mesh, specs))`` on a
+   (1, 1) mesh, crc32-equal to a plain load (:func:`dtensor_on_card`); (d)
+   the worked example's page through kernels A and B, held to their plain
+   versions and to the worked example's bytes (:func:`worked_example_on_card`);
+   launches counted over (d).
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -1800,6 +1816,252 @@ def model_zoo(card) -> dict:
     return {"launches": counted, "attn": attn_rows}
 
 
+#: phase 14 (a): every config at these shapes, and FULL_ARCH at the other two
+DRYRUN_SHAPES = ("decode_32k", "long_500k")
+DRYRUN_FULL_ARCH_SHAPES = ("train_4k", "prefill_32k")
+#: phase 14 (a): the longest wait for the dry-run's process in phase 14
+DRYRUN_WAIT_S = 600
+#: phase 14 (b): (kind, batch, positions) of the steps held to the card: the
+#: phase-10 batch for training, 8 x 128 for prefill, a batch-8 decode step
+COUNT_STEPS = (("train", 4, 32), ("prefill", 8, 128), ("decode", 8, 128))
+#: phase 14 (b): the largest share (counted bound / measured step) accepted;
+#: above it the count claims work the card did not do
+SHARE_MAX = 1.05
+
+
+def dryrun_cells(out_dir: Path) -> list[dict]:
+    """Phase 14 (a): the dry-run (fake tensors, on this machine's host) of
+    every config at :data:`DRYRUN_SHAPES` and of :data:`FULL_ARCH` at
+    :data:`DRYRUN_FULL_ARCH_SHAPES`, both meshes, each (arch, shape) counted
+    once; every parameter leaf of every config divides under both meshes;
+    the records and the ``roofline_torch`` table are printed."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import production_axis_sizes
+    from repro_torch.models.api import build_model
+
+    for multi_pod in (False, True):
+        axes = production_axis_sizes(multi_pod)
+        for arch, cfg in ARCHS.items():
+            params = specs.params_specs(build_model(cfg, "cpu"))
+            p_specs = shd.params_specs(params, axes)
+            for leaf, spec in zip(tree_leaves(params), shd.spec_leaves(p_specs)):
+                if not shd._fits(axes, leaf.shape, spec):
+                    raise AssertionError(f"{arch}: {tuple(leaf.shape)} does not divide by {spec}")
+    log(f"[14a] every parameter leaf of the {len(ARCHS)} configs divides under both meshes")
+
+    cells = [(arch, shape) for shape in DRYRUN_SHAPES for arch in sorted(ARCHS)]
+    cells += [(FULL_ARCH, shape) for shape in DRYRUN_FULL_ARCH_SHAPES]
+    counts: dict = {}
+    recs = []
+    for arch, shape in cells:
+        for mesh in ("pod", "multipod"):
+            rec = dryrun.run_cell(arch, shape, mesh, out_dir, counts=counts)
+            if not rec.get("ok"):
+                raise AssertionError(f"dry-run {arch} x {shape} x {mesh}:\n{rec['error']}")
+            recs.append(rec)
+            if not rec.get("skipped"):
+                rf = rec["roofline"]
+                log(f"[14a] {arch} x {shape} x {mesh}: counted in {rec['count_seconds']!r} s; "
+                    f"{rec['flops_per_chip']:.6g} FLOP, {rec['bytes_per_chip']:.6g} B, "
+                    f"{rec['collective_wire_bytes']['total']:.6g} wire B a chip; dominant "
+                    f"{rf['dominant']}, useful {rf['useful_flops_ratio']!r}; argument "
+                    f"{rec['memory_analysis']['argument_bytes']} B a chip")
+    roofline = _load_script("benchmarks/roofline_torch.py")
+    for mesh in ("pod", "multipod"):
+        log(f"[14a] roofline_torch --mesh {mesh} --markdown:")
+        roofline.main(["--dir", str(out_dir), "--mesh", mesh, "--markdown"])
+    return recs
+
+
+def start_dryrun(out_dir: Path) -> tuple[subprocess.Popen, Path]:
+    """Phase 14 (a) in a process of its own, started before phase 2: the
+    count is host work, so it runs beside the card's phases; stopped at exit
+    if the script ends first.  Returns the process and its log's path."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(root / "src"),
+                                                        os.environ.get("PYTHONPATH")])))
+    log_path = out_dir.parent / "dryrun.log"
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--dryrun-cells",
+                                 str(out_dir)], stdout=out, stderr=subprocess.STDOUT, env=env)
+
+    def stop() -> None:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, log_path
+
+
+def count_on_card(card, event_ms) -> list[dict]:
+    """Phase 14 (b): :data:`FULL_ARCH` at full width, :data:`FULL_LAYERS`
+    layers: each step of :data:`COUNT_STEPS` counted under ``FakeTensorMode``
+    at its shape and live on the card under the same counter (equal, op for
+    op), its bound max(FLOPs / peak, bytes / HBM rate) on the H100 data
+    sheet, its time (median of :data:`TIMING_REPEATS` warm CUDA-event
+    timings) and the share bound / time, held to :data:`SHARE_MAX`."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, op_stats, specs
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config(FULL_ARCH), n_layers=FULL_LAYERS)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(SEED))
+    opt = adamw.init_state(params)
+    gen = torch.Generator(device=card).manual_seed(SEED + 1)
+    rows = []
+    for kind, B, S in COUNT_STEPS:
+        sc = ShapeConfig(f"p14_{kind}", S, B, kind)
+        _, fake_run = dryrun.cell_step(cfg, sc, 1, card)
+        with specs.fake_mode():
+            _, fake = op_stats.count(fake_run)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S if kind != "decode" else 1),
+                               generator=gen, device=card, dtype=torch.int32)
+        if kind == "train":
+            step = make_train_step(model, adamw.AdamWConfig(), n_micro=1)
+            run = lambda: step(params, opt, {"tokens": tokens})  # noqa: E731
+        elif kind == "prefill":
+            cache = model.init_cache(B, S)
+            run = lambda: model.prefill({"tokens": tokens}, cache)  # noqa: E731
+        else:
+            cache = model.init_cache(B, S)
+            run = lambda: model.decode_step({"tokens": tokens}, cache, S - 1)  # noqa: E731
+        _, live = op_stats.count(run)
+        torch.cuda.synchronize(card)
+        if (live.flops, live.hbm_bytes) != (fake.flops, fake.hbm_bytes):
+            differ = {op: (list(fake.by_op.get(op, ())), list(live.by_op.get(op, ())))
+                      for op in set(fake.by_op) | set(live.by_op)
+                      if list(fake.by_op.get(op, ())) != list(live.by_op.get(op, ()))}
+            raise AssertionError(f"{kind}: the fake count ({fake.flops} FLOP, {fake.hbm_bytes} "
+                                 f"B) is not the live one ({live.flops}, {live.hbm_bytes}); "
+                                 f"(fake, live) [calls, flops, bytes] by op: {differ}")
+        for _ in range(2):
+            run()
+        times = sorted(event_ms(run) for _ in range(TIMING_REPEATS))
+        ms = times[len(times) // 2]
+        flops_ms, bytes_ms = live.flops / PEAK_FLOPS_BF16 * 1e3, live.hbm_bytes / HBM_BW * 1e3
+        bound = max(flops_ms, bytes_ms)
+        row = {"step": kind, "batch": B, "positions": S, "flops": live.flops,
+               "hbm_bytes": live.hbm_bytes, "ops": sum(c for c, _, _ in live.by_op.values()),
+               "ms": ms, "min_ms": times[0], "bound_ms": bound,
+               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+               "share": bound / ms}
+        rows.append(row)
+        log(f"[14b] {FULL_ARCH} ({FULL_LAYERS} layers) {kind} {B} x {S}: fake count = live "
+            f"count, {live.flops} FLOP, {live.hbm_bytes} B over {row['ops']} ops; "
+            f"{ms:.4f} ms (median of {TIMING_REPEATS}, min {times[0]:.4f}); bound "
+            f"{bound:.4f} ms by {row['bound_by']} (FLOP {flops_ms:.4f} ms, bytes "
+            f"{bytes_ms:.4f} ms); share {row['share']:.4f}")
+        log("[14b]   top ops by bytes: " + json.dumps(op_stats.top_ops(live, 5)))
+        if row["share"] > SHARE_MAX:
+            raise AssertionError(f"{kind}: share {row['share']:.4f} > {SHARE_MAX}: the count "
+                                 f"claims work the card did not do")
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dtensor_on_card(card, tmp: Path) -> dict:
+    """Phase 14 (c): a world of one under NCCL with a (1, 1) ("data",
+    "model") mesh: ``distribute_tree`` of the :data:`FULL_ARCH` tree
+    (:data:`FULL_LAYERS` layers) and ``ckpt.load(..., shardings=(mesh,
+    specs))`` of a checkpoint of it, each leaf crc32-equal to the tree and to
+    a plain load; the placements' wire bytes, 0 at world 1."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import SHAPES
+
+    torch.cuda.set_device(card.index if card.index is not None else 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        axes = {"data": 1, "model": 1}
+        cfg = dataclasses.replace(get_config(FULL_ARCH), n_layers=FULL_LAYERS)
+        params = build_model(cfg, card).init(torch.Generator(device=card).manual_seed(SEED))
+        p_specs = shd.params_specs(params, axes)
+        local = lambda tree: tree_map(lambda t: t.to_local(), tree)  # noqa: E731
+        want = _crc_tree(params)
+        if _crc_tree(local(shd.distribute_tree(params, mesh, p_specs))) != want:
+            raise AssertionError("distribute_tree changed a leaf")
+        t0 = time.perf_counter()
+        stats = ckpt.save(tmp / "p14", 0, params)
+        save_s = time.perf_counter() - t0
+        _, plain = ckpt.load(tmp / "p14", params, shardings=card)
+        t0 = time.perf_counter()
+        _, placed = ckpt.load(tmp / "p14", params, shardings=(mesh, p_specs))
+        load_s = time.perf_counter() - t0
+        got = _crc_tree(local(placed))
+        if got != _crc_tree(plain) or got != want:
+            raise AssertionError("the DTensor load is not crc32-equal to the plain load")
+        wire = dryrun.collective_bytes(params, p_specs, axes, SHAPES["train_4k"], 0, 4)
+        log(f"[14c] world 1, mesh (1, 1) ('data', 'model'): {len(want)} leaves placed by "
+            f"distribute_tree and by ckpt.load(shardings=(mesh, specs)), crc32-equal to "
+            f"the tree and to a plain load; saved in {save_s:.2f} s (ratio {stats['ratio']:.3f}), DTensor load {load_s:.2f} s; wire bytes a step "
+            f"at world 1: {wire['total']} (every ring has one member)")
+        if wire["total"] != 0:
+            raise AssertionError(f"a world of one sends {wire['total']} B")
+    finally:
+        dist.destroy_process_group()
+    return {"leaves": len(want), "save_s": save_s, "load_s": load_s}
+
+
+def worked_example_on_card(card, enc_mod, dec_mod) -> None:
+    """Phase 14 (d): ``format_doc.example_page()`` (128 words, two cap
+    profiles, spill and drop) through kernel A and back through kernel B,
+    held to ``gbdi_encode_plain`` field by field, to the worked example's
+    serialized bytes and to ``gbdi_decode_plain``."""
+    import torch
+
+    from repro_torch.core import format_doc
+
+    cfg = format_doc.example_config()
+    table = format_doc.example_table().to(card)
+    page = torch.from_numpy(format_doc.example_page()[None, :]).to(card)
+    blob = enc_mod.gbdi_encode(page, table, cfg)
+    bad = blob_diff(blob, enc_mod.gbdi_encode_plain(page, table, cfg))
+    if bad:
+        raise AssertionError(f"kernel A differs from its plain version on the worked page: {bad}")
+    _, ref = format_doc.encode_example()
+    page0 = {k: v[0] for k, v in blob.items() if isinstance(v, torch.Tensor)}
+    got = format_doc.serialize_page(page0, cfg)
+    if got != format_doc.serialize_page(ref, cfg):
+        raise AssertionError("kernel A's worked page does not serialize to the worked example")
+    words = dec_mod.gbdi_decode(blob, table, cfg)
+    if not torch.equal(words, dec_mod.gbdi_decode_plain(blob, table, cfg)):
+        raise AssertionError("kernel B differs from its plain version on the worked page")
+    log(f"[14d] worked page: kernel A = plain field by field, profile {int(page0['profile'])}, "
+        f"n_spilled {int(page0['n_spilled'])}, n_dropped {int(page0['n_dropped'])}, "
+        f"{len(got)} serialized bytes = the worked example's (crc32 {zlib.crc32(got)}); "
+        f"kernel B = plain")
+
+
 def _loss_backward(model, batch) -> float:
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)[0]
@@ -1814,6 +2076,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        dryrun_cells(Path(sys.argv[2]))
+        return 0
     import numpy as np
 
     from repro_torch import interop
@@ -1860,6 +2125,12 @@ def main() -> int:
             if "ptxas info" in line or "spill" in line:
                 log(f"    {kname}: {line.strip()}")
     peak = eval_run.peak_bytes_s(name)
+    dry_tmp = tempfile.TemporaryDirectory()
+    atexit.register(dry_tmp.cleanup)
+    dry_dir = Path(dry_tmp.name) / "dryrun"
+    dry_dir.mkdir()
+    dry_proc, dry_log = start_dryrun(dry_dir)
+    log(f"[1] phase 14 (a), the dry-run, started in process {dry_proc.pid}")
 
     # -- phase 2: kernel vs plain, bit for bit -------------------------------
     err = {"gbdi_encode": 0, "gbdi_decode": 0}
@@ -2400,6 +2671,35 @@ def main() -> int:
             raise AssertionError(f"{kname} was never launched in phase 13")
     log("[13] kernel C at the new geometries: " + json.dumps(zoo["attn"]))
 
+    # -- phase 14: the launch tools ----------------------------------------------
+    t14 = time.perf_counter()
+    t0 = time.perf_counter()
+    rc = dry_proc.wait(timeout=DRYRUN_WAIT_S)
+    for line in dry_log.read_text().splitlines():
+        log(f"    {line}")
+    if rc != 0:
+        raise AssertionError(f"the phase 14 (a) dry-run exited {rc}")
+    from repro_torch.configs import ARCHS
+
+    recs = [json.loads(f.read_text()) for f in sorted(dry_dir.glob("*.json"))]
+    if (len(recs) != 2 * (len(DRYRUN_SHAPES) * len(ARCHS) + len(DRYRUN_FULL_ARCH_SHAPES))
+            or not all(r.get("ok") for r in recs)):
+        raise AssertionError(f"the dry-run wrote {len(recs)} records, not all ok")
+    log(f"[14a] {len(recs)} records, {sum(1 for r in recs if r.get('skipped'))} skipped as the "
+        f"reference skips them; waited {time.perf_counter() - t0:.1f} s for the process")
+    with tempfile.TemporaryDirectory() as tmp:
+        shares = count_on_card(dev, event_ms)
+        dtensor_on_card(dev, Path(tmp))
+    enc_mod.launch_count = dec_mod.launch_count = 0
+    worked_example_on_card(dev, enc_mod, dec_mod)
+    tools_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    log(f"[14] phase-14 launches (the worked page): {tools_launches}; shares "
+        f"{ {r['step']: round(r['share'], 4) for r in shares} }; phase wall time "
+        f"{time.perf_counter() - t14:.1f} s ({smi})")
+    for kname, count in tools_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{kname} was never launched in phase 14")
+
     replaces = {"gbdi_encode": "src/repro/kernels/gbdi_encode.py:292",
                 "gbdi_decode": "src/repro/kernels/gbdi_decode.py:148",
                 "gbdi_paged_attn": "src/repro/kernels/gbdi_paged_attn.py:160"}
@@ -2413,7 +2713,7 @@ def main() -> int:
             "launches": (launches[kname] + serve_launches[kname] + suite_launches[kname]
                          + dump_launches[kname] + ml_launches[kname] + serving_launches[kname]
                          + front_launches[kname] + ring_launches[kname]
-                         + zoo_launches[kname]),
+                         + zoo_launches[kname] + tools_launches[kname]),
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })

@@ -23,8 +23,9 @@ The fit and the encode (and on load the decode) run on the device where
 the leaves live, through :mod:`repro_torch.core.gbdi`; only the ``.npz``
 reads and writes are host work.  ``load(..., shardings=)`` takes a device,
 or a tree of devices, to place the leaves on (a leaf goes to its template
-leaf's device otherwise); the reference's mesh shardings wait for the port
-of ``distributed/sharding.py``.
+leaf's device otherwise), or, as the reference takes mesh shardings, a
+``(device_mesh, spec_tree)`` pair that returns DTensors placed by the specs
+of :mod:`repro_torch.distributed.sharding`.
 """
 from __future__ import annotations
 
@@ -195,9 +196,12 @@ def _load_leaf(d: Path, entry: dict, dev: torch.device) -> torch.Tensor:
 def load(ckpt_dir: str | Path, template: Any, *, step: int | None = None,
          shardings: Any = None) -> tuple[int, Any]:
     """Restore into the structure of ``template`` (the latest step unless
-    ``step`` is given).  ``shardings``: a device, or a tree of devices
-    matching ``template``, to place the leaves on, in their stored dtype;
-    without it each leaf lands on its template leaf's device in its dtype."""
+    ``step`` is given).  ``shardings`` places the leaves, in their stored
+    dtype: a device, a tree of devices matching ``template``, or a
+    ``(device_mesh, spec_tree)`` pair, which reads each whole leaf and
+    returns it as a DTensor placed by its spec
+    (:func:`repro_torch.distributed.sharding.distribute_tree`).  Without it
+    each leaf lands on its template leaf's device in its dtype."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -205,10 +209,13 @@ def load(ckpt_dir: str | Path, template: Any, *, step: int | None = None,
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = ckpt_dir / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
+    mesh_specs = _mesh_and_specs(shardings)
     if shardings is None:
         targets = tree_map(lambda t: None, template)
     elif isinstance(shardings, (str, torch.device)):
         targets = tree_map(lambda t: torch.device(shardings), template)
+    elif mesh_specs is not None:
+        targets = tree_map(lambda t: _mesh_device(mesh_specs[0]), template)
     else:
         targets = shardings
     paths = iter(path_str(p) for p, _ in tree_flatten_with_path(template))
@@ -219,7 +226,28 @@ def load(ckpt_dir: str | Path, template: Any, *, step: int | None = None,
             return _load_leaf(d, entry, torch.device(dev))
         return _load_leaf(d, entry, t.device).to(dtype=t.dtype)
 
-    return step, tree_map(leaf, template, targets)
+    tree = tree_map(leaf, template, targets)
+    if mesh_specs is not None:
+        from repro_torch.distributed.sharding import distribute_tree
+
+        tree = distribute_tree(tree, *mesh_specs)
+    return step, tree
+
+
+def _mesh_and_specs(shardings: Any) -> tuple[Any, Any] | None:
+    """``shardings`` as a ``(DeviceMesh, spec tree)`` pair, or None."""
+    if not (isinstance(shardings, tuple) and len(shardings) == 2):
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return shardings if isinstance(shardings[0], DeviceMesh) else None
+
+
+def _mesh_device(mesh: Any) -> torch.device:
+    """The device of this rank on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 __all__ = ["MIN_COMPRESS_BYTES", "SAMPLE_WORDS", "latest_step", "leaf_words", "load", "save"]

@@ -45,14 +45,16 @@ import torch
 
 from repro_torch.core.gbdi_fr import FRConfig
 from repro_torch.eval.registry import CodecRegistry, EvalCell, Workload, WorkloadRegistry
+from repro_torch.launch.mesh import HBM_BW
 
 #: published HBM bandwidth by card, matched against the reported name
-#: (NVIDIA data sheets; the SXM H100 is the default "H100")
+#: (NVIDIA data sheets); the SXM H100, the default "H100", takes the
+#: roofline's rate from :mod:`repro_torch.launch.mesh`
 PEAK_BYTES_S = (
     ("H200", 4.8e12),
     ("H100 NVL", 3.9e12),
     ("H100 PCIe", 2.0e12),
-    ("H100", 3.35e12),
+    ("H100", HBM_BW),
 )
 
 

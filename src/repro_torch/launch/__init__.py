@@ -1,10 +1,18 @@
-"""Entry points of the PyTorch port.
+"""Entry points and launch tools of the PyTorch port.
 
-* :mod:`repro_torch.launch.serve` — the batched continuous-batching serving
+* :mod:`repro_torch.launch.serve` - the batched continuous-batching serving
   engine over a model (``python -m repro_torch.launch.serve``);
-* :mod:`repro_torch.launch.train` — the fault-tolerant trainer with
-  GBDI-compressed checkpoints (``python -m repro_torch.launch.train``).
+* :mod:`repro_torch.launch.train` - the fault-tolerant trainer with
+  GBDI-compressed checkpoints (``python -m repro_torch.launch.train``);
+* :mod:`repro_torch.launch.mesh` - the production mesh axes and the H100
+  roofline constants;
+* :mod:`repro_torch.launch.specs` - fake-tensor stand-ins for every model
+  input (the reference's ``jax.eval_shape`` trees);
+* :mod:`repro_torch.launch.op_stats` - FLOPs, HBM bytes and collective wire
+  bytes of an eager program, op by op: the counterpart of
+  :mod:`repro.launch.hlo_stats`, which walks compiled HLO;
+* :mod:`repro_torch.launch.dryrun` - the per-cell count and roofline record
+  of every (arch x shape x mesh) (``python -m repro_torch.launch.dryrun``).
 
-Counterpart of :mod:`repro.launch`; its mesh, spec and lowering tools are
-not ported yet.
+Counterpart of :mod:`repro.launch`.
 """
