@@ -128,7 +128,18 @@ Phases, in order; any failure exits non-zero before the final line:
    (1, 1) mesh, crc32-equal to a plain load (:func:`dtensor_on_card`); (d)
    the worked example's page through kernels A and B, held to their plain
    versions and to the worked example's bytes (:func:`worked_example_on_card`);
-   launches counted over (d).
+   launches counted over (d);
+15. the analysis gate (:func:`analysis_gate`): (a) ``python -m
+   repro_torch.analysis`` over this checkout with ``analysis-baseline-torch.json``
+   (no new finding, no stale entry; the count a checker, ``--list-checks``);
+   (b) the shared-memory and occupancy model of kernels A, B and C at each
+   representative config, with the libraries' own shared bytes, the
+   runtime's blocks an SM and ``-Xptxas -v``'s registers and spills, printed
+   beside the card's name and power limit (formula = library, model blocks
+   >= runtime blocks, every row ok); (c) kernels A and B at each codec config
+   of the report on seeded pages, bit for bit against their plain versions,
+   and kernel C at each attention geometry within ``ATTN_TOL``; launches
+   counted over (c).
 
 It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
@@ -2062,6 +2073,107 @@ def worked_example_on_card(card, enc_mod, dec_mod) -> None:
         f"kernel B = plain")
 
 
+#: phase 15 (c): pages a codec config encodes, pages its table is fitted on,
+#: the batch of kernel C's geometries and the page slots a row holds
+GATE_PAGES, GATE_FIT_PAGES, GATE_BATCH, GATE_SLOTS = 256, 16, 2, 24
+
+
+def analysis_gate(card, logs: dict, smi: str) -> dict:
+    """Phase 15: (a) ``python -m repro_torch.analysis`` over this checkout in
+    process with the port's baseline (no new finding, no stale entry), the
+    count a checker and ``--list-checks``; (b) the shared-memory and occupancy
+    report with the card's columns (``smem_cost.on_card`` with phase 1's
+    ``-Xptxas -v`` logs), every row held to formula = library bytes and
+    model blocks >= runtime blocks; (c) kernels A and B at each codec config
+    of the report on seeded pages, bit for bit against their plain versions,
+    and kernel C at each attention geometry within ``ATTN_TOL``.  Returns the
+    launches of (c)."""
+    import torch
+
+    from repro_torch.analysis import smem_cost
+    from repro_torch.analysis.cli import main as analysis_main
+    from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
+    from repro_torch.kernels import gbdi_decode as dec_mod
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "analysis.json"
+        rc = analysis_main(["--root", str(root), "--json", str(out)])
+        report = json.loads(out.read_text())
+    if rc != 0 or report["new"] or report["stale_baseline_entries"]:
+        raise AssertionError(f"the port's analysis gate exited {rc}: {len(report['new'])} new "
+                             f"finding(s), {len(report['stale_baseline_entries'])} stale entries")
+    counts = {cid: 0 for cid in report["checks_run"]}
+    for f in report["suppressed"]:
+        counts[f["check"]] += 1
+    log(f"[15a] {report['files_scanned']} files, {len(report['checks_run'])} checks, "
+        f"0 new, {len(report['suppressed'])} baselined, 0 stale; findings a checker "
+        f"(all baselined): {json.dumps(counts)} in {time.perf_counter() - t0:.1f} s")
+    analysis_main(["--list-checks"])
+
+    t0 = time.perf_counter()
+    rows = smem_cost.on_card(smem_cost.full_report(), logs)
+    log(f"[15b] shared memory and occupancy, model vs card ({smi}):")
+    for line in smem_cost.render(rows).splitlines():
+        log(f"    {line}")
+    for r in rows:
+        if r.lib_smem_bytes != r.smem_bytes or r.blocks_by_smem < r.runtime_blocks or not r.ok:
+            raise AssertionError(f"{r.kernel} under {r.config}: {r.problems}")
+    log(f"[15b] {len(rows)} rows ok: library bytes = formula, model blocks >= runtime blocks; "
+        f"json {json.dumps([r.to_json() for r in rows])} in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=card).manual_seed(SEED + 15)
+    enc_mod.launch_count = dec_mod.launch_count = pa_mod.launch_count = 0
+    for label, cfg in smem_cost.codec_configs():
+        n = GATE_PAGES * cfg.page_words
+        x = torch.randn(n, generator=gen, device=card) * (1e-3 if label == "GRAD_FR" else 1.0)
+        words = (bf16_to_words(x) if cfg.word_bits == 16 else x.view(torch.int32))
+        pages = words.reshape(GATE_PAGES, cfg.page_words).contiguous()
+        table = fit_fr_bases(pages[:GATE_FIT_PAGES], cfg)
+        blob = enc_mod.gbdi_encode(pages, table, cfg)
+        bad = blob_diff(blob, enc_mod.gbdi_encode_plain(pages, table, cfg))
+        got = dec_mod.gbdi_decode(blob, table, cfg)
+        same = torch.equal(got, dec_mod.gbdi_decode_plain(blob, table, cfg))
+        if bad or not same:
+            raise AssertionError(f"{label}: kernel A differs from plain in {bad}, "
+                                 f"kernel B = plain: {same}")
+        log(f"[15c] {label}: {GATE_PAGES} pages, kernel A = plain field by field, kernel B = "
+            f"plain (dropped {int(blob['n_dropped'].sum())}, spilled "
+            f"{int(blob['n_spilled'].sum())})")
+    for label, cfg, n_kv, hd, groups in smem_cost.attn_geometries():
+        geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+        n_tok = GATE_SLOTS * pa_mod.page_tokens(cfg, n_kv, hd)
+        ch = torch.randn(1, 1, n_kv, hd, generator=gen, device=card) * 2
+        ks, vs = ((ch + 0.1 * torch.randn(GATE_BATCH, n_tok, n_kv, hd, generator=gen,
+                                          device=card)).to(torch.bfloat16) for _ in "kv")
+        table = fit_fr_bases(bf16_to_words(torch.cat([ks[0].reshape(-1), vs[0].reshape(-1)])),
+                             cfg)
+        pk, pv = ({k: v.reshape((GATE_BATCH, GATE_SLOTS) + v.shape[1:]) for k, v in
+                   enc_mod.gbdi_encode(bf16_to_words(t).reshape(-1, cfg.page_words).contiguous(),
+                                       table, cfg).items() if k not in ("n_spilled", "n_dropped")}
+                  for t in (ks, vs))
+        q = torch.randn(GATE_BATCH, n_kv, groups, hd, generator=gen, device=card)
+        acc, m, l = pa_mod.paged_attention_decode(q, pk, pv, table, n_tok - 1, cfg, **geom)
+        err = attn_errors(acc, m, l, *pa_mod.paged_attention_decode_plain(
+            q, pk, pv, table, n_tok - 1, cfg, **geom))
+        if any(err[k] > ATTN_TOL[k] for k in err):
+            raise AssertionError(f"{label}: kernel C vs plain {err} beyond {ATTN_TOL}")
+        log(f"[15c] {label} (Kv {n_kv}, hd {hd}, G {groups}): B={GATE_BATCH}, {GATE_SLOTS} "
+            f"page slots, pos {n_tok - 1}, {pa_mod.pass_slots(cfg, **geom)} slots a pass: "
+            f"kernel C vs plain {err} (tolerances {ATTN_TOL})")
+    launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count,
+                "gbdi_paged_attn": pa_mod.launch_count}
+    log(f"[15c] launches {launches} in {time.perf_counter() - t0:.1f} s ({smi})")
+    for kname, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{kname} was never launched in phase 15 (c)")
+    return launches
+
+
 def _loss_backward(model, batch) -> float:
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)[0]
@@ -2700,6 +2812,12 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"{kname} was never launched in phase 14")
 
+    # -- phase 15: the analysis gate and the shared-memory model on the card -----
+    t15 = time.perf_counter()
+    gate_launches = analysis_gate(dev, logs, smi)
+    log(f"[15] phase-15 launches: {gate_launches}; phase wall time "
+        f"{time.perf_counter() - t15:.1f} s ({smi})")
+
     replaces = {"gbdi_encode": "src/repro/kernels/gbdi_encode.py:292",
                 "gbdi_decode": "src/repro/kernels/gbdi_decode.py:148",
                 "gbdi_paged_attn": "src/repro/kernels/gbdi_paged_attn.py:160"}
@@ -2713,7 +2831,8 @@ def main() -> int:
             "launches": (launches[kname] + serve_launches[kname] + suite_launches[kname]
                          + dump_launches[kname] + ml_launches[kname] + serving_launches[kname]
                          + front_launches[kname] + ring_launches[kname]
-                         + zoo_launches[kname] + tools_launches[kname]),
+                         + zoo_launches[kname] + tools_launches[kname]
+                         + gate_launches[kname]),
             "max_abs_err": err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": bound_by, "library_ms": None,
         })
@@ -2722,7 +2841,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/gbdi_paged_attn.cu",
         "replaces": replaces["gbdi_paged_attn"],
         "launches": (serve_launches["gbdi_paged_attn"] + serving_launches["gbdi_paged_attn"]
-                     + zoo_launches["gbdi_paged_attn"]),
+                     + zoo_launches["gbdi_paged_attn"] + gate_launches["gbdi_paged_attn"]),
         "max_abs_err": max([attn_err["out"]] + [r["out"] for r in zoo["attn"]]),
         "ms": pa_ms, "plain_ms": pa_plain_ms,
         "bound_ms": pa_bound, "bound_by": pa_bound_by, "library_ms": lib_ms,

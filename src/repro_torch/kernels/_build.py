@@ -6,7 +6,8 @@ checkout, then loaded with :mod:`ctypes`.  No PyTorch headers are involved,
 so a build takes seconds.  A library is rebuilt when any source in ``csrc/``
 is newer than it.  :func:`compile_kernels` starts one ``nvcc`` per source at
 once and returns what ``-Xptxas -v`` reported (registers, shared memory,
-spills) for each.
+spills) for each, and keeps that report beside the library, where
+:func:`ptxas_logs` reads it back.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def ptxas_log_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.ptxas.txt"
+
+
 def _stale(name: str) -> bool:
     lib = library_path(name)
     if not lib.exists():
@@ -73,9 +78,19 @@ def compile_kernels(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, library_path(name))
+            ptxas_log_path(name).write_text(out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def ptxas_logs(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
+    """What ``-Xptxas -v`` reported when each library was built, building
+    those that are missing, stale or have no saved report."""
+    todo = tuple(n for n in names if _stale(n) or not ptxas_log_path(n).exists())
+    if todo:
+        compile_kernels(todo)
+    return {n: ptxas_log_path(n).read_text() for n in names}
 
 
 @functools.lru_cache(maxsize=len(KERNELS))
@@ -103,4 +118,4 @@ def ptr_array(values: list[int]) -> "ctypes.Array[ctypes.c_longlong]":
 
 
 __all__ = ["BUILD_DIR", "CSRC", "KERNELS", "compile_kernels", "int_array",
-           "library_path", "load", "nvcc", "ptr_array"]
+           "library_path", "load", "nvcc", "ptr_array", "ptxas_log_path", "ptxas_logs"]

@@ -26,6 +26,7 @@ from repro_torch.kernels.gbdi_encode import (
     SMEM_LIMIT_BYTES,
     PreparedTable,
     check_cuda_input,
+    check_prepared,
     check_smem,
     kernel_iparams,
     plain_table,
@@ -98,6 +99,7 @@ def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike | PreparedTable,
         check_cuda_input(blob[key], key, shape)
     check_smem(cfg, smem_bytes(cfg))
     prep = prepare_table(table, cfg, dev)
+    check_prepared(prep, cfg)
     bases, cls, meta = prep.bases, prep.cls, prep.meta
     out = torch.empty((n, cfg.page_words), dtype=torch.int32, device=dev)
     lib = _build.load("gbdi_decode")

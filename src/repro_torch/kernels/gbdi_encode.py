@@ -192,6 +192,17 @@ def check_cuda_input(t: torch.Tensor, name: str, shape: tuple[int, ...]) -> None
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def check_prepared(prep: PreparedTable, cfg: FRConfig) -> None:
+    """Raise unless a prepared table's tensors are what the kernels read:
+    contiguous int32 of ``k_padded(cfg)`` bases and classes and the
+    config's meta (``prepare_table`` returns a given :class:`PreparedTable`
+    of the right config and device as it is)."""
+    k = k_padded(cfg)
+    n_meta = cfg.num_profiles * (2 * cfg.num_classes + 1)
+    for name, t, n in (("bases", prep.bases, k), ("cls", prep.cls, k), ("meta", prep.meta, n_meta)):
+        check_cuda_input(t, f"prepared {name}", (n,))
+
+
 def gbdi_encode_plain(x_pages: torch.Tensor, table: TableLike | PreparedTable,
                       cfg: FRConfig) -> dict[str, torch.Tensor]:
     """The kernel's plain PyTorch version (on whatever device ``x_pages`` lies)."""
@@ -212,6 +223,7 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike | PreparedTable,
     check_cuda_input(x_pages, "x_pages", (n, cfg.page_words))
     check_smem(cfg)
     prep = prepare_table(table, cfg, dev)
+    check_prepared(prep, cfg)
     bases, cls, meta = prep.bases, prep.cls, prep.meta
 
     def out(*shape: int) -> torch.Tensor:
@@ -246,7 +258,7 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike | PreparedTable,
 
 
 __all__ = [
-    "MAX_PAGE_WORDS", "PREP_CAP", "PreparedTable", "SMEM_LIMIT_BYTES", "check_smem",
+    "MAX_PAGE_WORDS", "PREP_CAP", "PreparedTable", "SMEM_LIMIT_BYTES", "check_prepared", "check_smem",
     "gbdi_encode", "gbdi_encode_plain", "k_padded", "kernel_iparams", "kernel_meta",
     "launch_count", "pad_table", "plain_table", "prepare_table", "smem_bytes",
     "table_cache_clear", "table_cache_info",

@@ -31,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.format import TableLike, as_base_table
+from repro_torch.core.format import WORD16_MASK, TableLike, as_base_table
 from repro_torch.core.gbdi_fr import FRConfig, fr_decode, words_to_bf16
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdi_encode import (
@@ -405,7 +405,7 @@ def decode_pages(
                                                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gbdi_paged_attn decode launch failed (code {rc})")
-    return tuple(w.to(torch.int32) & 0xFFFF for w in (out_k, out_v))  # type: ignore[return-value]
+    return tuple(w.to(torch.int32) & WORD16_MASK for w in (out_k, out_v))  # type: ignore[return-value]
 
 
 __all__ = [

@@ -39,7 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.format import TableLike
+from repro_torch.core.format import WORD16_MASK, TableLike
 from repro_torch.core.gbdi_fr import FRConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.gbdi_encode import PreparedTable, prepare_table
@@ -269,7 +269,7 @@ def decode_pages(
     else:
         words = _decode_split(flat, table, cfg, devs)
     if unsigned and cfg.word_bits == 16:
-        words = words & 0xFFFF
+        words = words & WORD16_MASK
     return words.reshape(lead + (cfg.page_words,))
 
 
