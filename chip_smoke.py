@@ -191,6 +191,25 @@ def log(*args: object) -> None:
     print(*args, flush=True)
 
 
+#: the launch counters of repro_torch.obs, by the kernel module that counts them
+LAUNCH_COUNTERS = {"gbdi_encode": "launches.encode", "gbdi_decode": "launches.decode",
+                   "gbdi_paged_attn": "launches.attn"}
+
+
+def launch_counts(*mods: str) -> dict[str, int]:
+    """Kernel launches counted so far, by kernel module."""
+    from repro_torch import obs
+
+    counters = obs.snapshot(spans=False)["counters"]
+    return {m: counters[LAUNCH_COUNTERS[m]] for m in mods}
+
+
+def reset_launches(*mods: str) -> None:
+    from repro_torch import obs
+
+    obs.reset(*(LAUNCH_COUNTERS[m] for m in mods))
+
+
 def handmade_blobs(cfg, n_pages: int, seed: int):
     """(blob, bases, widths) as numpy int32 arrays of blobs the encoder never
     writes: random ptr and delta lanes, every code 0 (the first base, class
@@ -1113,8 +1132,6 @@ def _ring_rank(rank: int, world: int, payload: dict) -> dict:
     from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.distributed import collectives
-    from repro_torch.kernels import gbdi_decode as dec_mod
-    from repro_torch.kernels import gbdi_encode as enc_mod
     from repro_torch.models.api import build_model
     from repro_torch.optim import adamw
     from repro_torch.training import train_step
@@ -1139,7 +1156,7 @@ def _ring_rank(rank: int, world: int, payload: dict) -> dict:
     t0 = time.perf_counter()
     held = _hold_ring_leaves(grads, refit)
     sync()
-    enc_mod.launch_count = dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     out = {"rank": rank, "loss": float(loss), "ring": {}, "n_grad": n_grad, "held": held,
            "held_s": time.perf_counter() - t0}
 
@@ -1196,7 +1213,7 @@ def _ring_rank(rank: int, world: int, payload: dict) -> dict:
     out["finite"] = all(bool(t.float().isfinite().all()) for _, t in tree_flatten_with_path(new_params))
     out["crc"] = {path_str(p): zlib.crc32(interop.params_to_numpy(t).tobytes())
                   for p, t in tree_flatten_with_path(new_params)}
-    out["launches"] = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    out["launches"] = launch_counts("gbdi_encode", "gbdi_decode")
     out["peak"] = torch.cuda.max_memory_allocated(card) if card.type == "cuda" else 0
     return out
 
@@ -1603,8 +1620,6 @@ def zoo_attention(card, model, counted: dict) -> tuple[dict, object]:
 
     from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
     from repro_torch.eval import run as eval_run
-    from repro_torch.kernels import gbdi_decode as dec_mod
-    from repro_torch.kernels import gbdi_encode as enc_mod
     from repro_torch.kernels import gbdi_paged_attn as pa_mod
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.engine import KVSession
@@ -1629,13 +1644,13 @@ def zoo_attention(card, model, counted: dict) -> tuple[dict, object]:
     table = fit_fr_bases(bf16_to_words(sample), spec.fr)
     qs = torch.randn(steps, B, 1, H, hd, generator=gen, device=card)
     sess = KVSession(spec, B, table, device=card)
-    mods = {"gbdi_encode": enc_mod, "gbdi_decode": dec_mod, "gbdi_paged_attn": pa_mod}
+    mods = ("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
 
     def count(fn):
-        before = {k: m.launch_count for k, m in mods.items()}
+        before = launch_counts(*mods)
         out = fn()
-        for k, m in mods.items():
-            counted[k] += m.launch_count - before[k]
+        for k, n in launch_counts(*mods).items():
+            counted[k] += n - before[k]
         return out
 
     count(lambda: sess.prefill(ks[:, :T], vs[:, :T]))
@@ -1755,8 +1770,6 @@ def model_zoo(card) -> dict:
     from repro_torch.eval import run as eval_run
     from repro_torch.eval.codecs import default_codecs
     from repro_torch.eval.registry import WorkloadRegistry
-    from repro_torch.kernels import gbdi_decode as dec_mod
-    from repro_torch.kernels import gbdi_encode as enc_mod
     from repro_torch.models.api import build_model
 
     counted = {"gbdi_encode": 0, "gbdi_decode": 0, "gbdi_paged_attn": 0}
@@ -1806,11 +1819,11 @@ def model_zoo(card) -> dict:
 
     reg = WorkloadRegistry([image_family(img) for img in images])
     t0 = time.perf_counter()
-    before = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    before = launch_counts("gbdi_encode", "gbdi_decode")
     cells = eval_run.evaluate(reg, default_codecs(str(card)), suite="dump", codecs="gbdi,bdi,fr",
                               n_bytes=ZOO_SUITE_BYTES, seed=0, repeats=1)
-    counted["gbdi_encode"] += enc_mod.launch_count - before["gbdi_encode"]
-    counted["gbdi_decode"] += dec_mod.launch_count - before["gbdi_decode"]
+    for k, n in launch_counts("gbdi_encode", "gbdi_decode").items():
+        counted[k] += n - before[k]
     bad = [f"{c.workload}/{c.codec}: {c.error}" for c in cells if not c.verified]
     if bad or len(cells) != 3 * len(images):
         raise AssertionError(f"[13d] {len(cells)} cells, failed: {bad}")
@@ -2127,7 +2140,7 @@ def analysis_gate(card, logs: dict, smi: str) -> dict:
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=card).manual_seed(SEED + 15)
-    enc_mod.launch_count = dec_mod.launch_count = pa_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
     for label, cfg in smem_cost.codec_configs():
         n = GATE_PAGES * cfg.page_words
         x = torch.randn(n, generator=gen, device=card) * (1e-3 if label == "GRAD_FR" else 1.0)
@@ -2165,8 +2178,7 @@ def analysis_gate(card, logs: dict, smi: str) -> dict:
         log(f"[15c] {label} (Kv {n_kv}, hd {hd}, G {groups}): B={GATE_BATCH}, {GATE_SLOTS} "
             f"page slots, pos {n_tok - 1}, {pa_mod.pass_slots(cfg, **geom)} slots a pass: "
             f"kernel C vs plain {err} (tolerances {ATTN_TOL})")
-    launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count,
-                "gbdi_paged_attn": pa_mod.launch_count}
+    launches = launch_counts("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
     log(f"[15c] launches {launches} in {time.perf_counter() - t0:.1f} s ({smi})")
     for kname, count in launches.items():
         if count <= 0:
@@ -2404,8 +2416,7 @@ def main() -> int:
     compare("grad-fr-all-outliers", ow, far, GRAD_FR)
 
     # -- phase 3: the main path, counted -------------------------------------
-    enc_mod.launch_count = 0
-    dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     cells = []
     for wname, (wl, data, cfg, _pages, _table) in streams.items():
         cell = eval_run.evaluate_cell(wl, FRCodec(word_bits=wl.word_bits), data, repeats=3)
@@ -2418,7 +2429,7 @@ def main() -> int:
             f"mismatched {cell.mismatched_words} <= dropped {cell.dropped_words}; "
             f"fit {cell.fit_s:.3f} s, encode {cell.encode_s * 1e3:.3f} ms, "
             f"decode {cell.decode_s * 1e3:.3f} ms ({cell.device}, {cell.power_limit})")
-    launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    launches = launch_counts("gbdi_encode", "gbdi_decode")
     log(f"[3] main-path launches: {launches}")
     for kname, count in launches.items():
         if count <= 0:
@@ -2558,7 +2569,7 @@ def main() -> int:
     log(f"[6] bytes per layer at batch {B}: compressed {spec.compressed_bytes(B)} B "
         f"({kv16.compressed_bytes_per_page()} B per page, {spec.n_pages} pages per sequence, "
         f"K and V), raw {spec.raw_bytes(B)} B, resident spec {res_spec.compressed_bytes(B)} B")
-    enc_mod.launch_count = dec_mod.launch_count = pa_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
     sessions, outs, step_ms = {}, {}, {}
     for label, sp in (("paged", spec), ("resident", res_spec)):
         sync()
@@ -2578,8 +2589,7 @@ def main() -> int:
         log(f"[6] {label}: init + prefill of {T} tokens {fill_s:.3f} s; {steps} steps at "
             f"positions {T}..{T + steps - 1}: " + ", ".join(f"{t:.3f}" for t in step_ms[label])
             + " ms (host clock, synchronised)")
-    serve_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count,
-                      "gbdi_paged_attn": pa_mod.launch_count}
+    serve_launches = launch_counts("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
     log(f"[6] serving-path launches: {serve_launches}")
     for kname, count in serve_launches.items():
         if count <= 0:
@@ -2676,14 +2686,14 @@ def main() -> int:
 
     # -- phase 8: the paper's suite on the card ---------------------------------
     t8 = time.perf_counter()
-    enc_mod.launch_count = dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     paper_suite(dev)
     t0 = time.perf_counter()
     tp_rows = eval_run.throughput(reg, default_codecs(), codecs="gbdi,bdi,fr",
                                   n_bytes=SUITE_BYTES, repeats=5)
     log(eval_run.format_throughput_table(tp_rows))
     log(f"[8] throughput of {len(tp_rows)} rows in {time.perf_counter() - t0:.1f} s")
-    suite_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    suite_launches = launch_counts("gbdi_encode", "gbdi_decode")
     log(f"[8] suite-phase launches: {suite_launches}; phase wall time "
         f"{time.perf_counter() - t8:.1f} s")
     for kname, count in suite_launches.items():
@@ -2705,18 +2715,18 @@ def main() -> int:
         f"d_ff {full_cfg.d_ff}, vocab {full_cfg.vocab_size}), depth cut to {FULL_LAYERS} layers: "
         f"{sum(t.numel() for t in model.parameters())} parameters initialised on the card in "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({name}, {smi.split(',')[-1].strip()})")
-    enc_mod.launch_count = dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     with tempfile.TemporaryDirectory() as tmp:
         dump_suite(dev, model, Path(tmp) / "dumps")
-    dump_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    dump_launches = launch_counts("gbdi_encode", "gbdi_decode")
     log(f"[9] dump-phase launches: {dump_launches}; phase wall time "
         f"{time.perf_counter() - t9:.1f} s ({smi})")
 
     # -- phase 10: the model-backed ML families ------------------------------------
     t10 = time.perf_counter()
-    enc_mod.launch_count = dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     ml_families(dev, model)
-    ml_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    ml_launches = launch_counts("gbdi_encode", "gbdi_decode")
     log(f"[10] ML-phase launches: {ml_launches}; phase wall time "
         f"{time.perf_counter() - t10:.1f} s ({smi})")
     for kname in launches:
@@ -2725,7 +2735,7 @@ def main() -> int:
 
     # -- phase 11: serving on the card -------------------------------------------
     t11 = time.perf_counter()
-    enc_mod.launch_count = dec_mod.launch_count = pa_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
     serving_parity(dev)
     log(f"[11a] in {time.perf_counter() - t11:.1f} s")
     t0 = time.perf_counter()
@@ -2737,8 +2747,7 @@ def main() -> int:
         f"{full['compressed']['peak_resident']}; in {time.perf_counter() - t0:.1f} s ({smi})")
     t0 = time.perf_counter()
     serving_scripts(dev)
-    serving_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count,
-                        "gbdi_paged_attn": pa_mod.launch_count}
+    serving_launches = launch_counts("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
     log(f"[11c] in {time.perf_counter() - t0:.1f} s; serving-phase launches: "
         f"{serving_launches}; phase wall time {time.perf_counter() - t11:.1f} s ({smi})")
     for kname, count in serving_launches.items():
@@ -2749,7 +2758,7 @@ def main() -> int:
 
     # -- phase 12: the front-end, the trainer, the gradient ring, the scripts ----
     t12 = time.perf_counter()
-    enc_mod.launch_count = dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     _wl, _data, kv_cfg, kv_pages, kv_table = streams["ml_kvcache_bf16"]
     t0 = time.perf_counter()
     front_end(dev, kv_cfg, kv_pages, kv_table)
@@ -2761,7 +2770,7 @@ def main() -> int:
         ring = ring_on_card(dev, (np.array(trained["fr_bases"], np.int32),
                                   np.array(trained["fr_widths"], np.int32)))
         slice_scripts(dev, Path(tmp))
-    front_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    front_launches = launch_counts("gbdi_encode", "gbdi_decode")
     ring_launches = {k: sum(o["launches"][k] for o in ring["outs"]) for k in front_launches}
     for kname, e in ring["err"].items():
         err[kname] = max(err[kname], e)
@@ -2802,9 +2811,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         shares = count_on_card(dev, event_ms)
         dtensor_on_card(dev, Path(tmp))
-    enc_mod.launch_count = dec_mod.launch_count = 0
+    reset_launches("gbdi_encode", "gbdi_decode")
     worked_example_on_card(dev, enc_mod, dec_mod)
-    tools_launches = {"gbdi_encode": enc_mod.launch_count, "gbdi_decode": dec_mod.launch_count}
+    tools_launches = launch_counts("gbdi_encode", "gbdi_decode")
     log(f"[14] phase-14 launches (the worked page): {tools_launches}; shares "
         f"{ {r['step']: round(r['share'], 4) for r in shares} }; phase wall time "
         f"{time.perf_counter() - t14:.1f} s ({smi})")

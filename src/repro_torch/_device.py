@@ -1,7 +1,13 @@
-"""Device choice for the port's entry points: the card unless told otherwise."""
+"""Device choice for the port's entry points (the card unless told
+otherwise), and the one helper through which the port copies host values to
+the card with a blocking copy."""
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+
+from repro_torch import obs
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -19,4 +25,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
-__all__ = ["resolve_device"]
+def upload(data: Any, *, dtype: torch.dtype, device: str | torch.device) -> torch.Tensor:
+    """``torch.tensor(data, dtype=dtype, device=device)``.  On a CUDA device
+    that is a copy from pageable host memory, which waits for the stream's
+    queued work; there it is counted in ``uploads`` and recorded as an
+    ``upload`` span."""
+    if torch.device(device).type != "cuda":
+        return torch.tensor(data, dtype=dtype, device=device)
+    obs.count("uploads")
+    with obs.span("upload"):
+        return torch.tensor(data, dtype=dtype, device=device)
+
+
+__all__ = ["resolve_device", "upload"]

@@ -17,6 +17,7 @@ from typing import Any, NamedTuple, Sequence, Union
 
 import torch
 
+from repro_torch._device import upload
 from repro_torch.core.kmeans import delta_magnitude, wrap_int32, wrapped_delta
 
 #: field widths that tile an int32 lane exactly (lane-packable)
@@ -111,8 +112,7 @@ def class_indices(widths: torch.Tensor, width_set: Sequence[int]) -> torch.Tenso
     idx = torch.full(widths.shape, len(width_set), dtype=torch.int32,
                      device=widths.device)
     for i, w in enumerate(width_set):
-        idx = torch.where(widths == w, torch.tensor(i, dtype=torch.int32,
-                                                    device=widths.device), idx)
+        idx = torch.where(widths == w, upload(i, dtype=torch.int32, device=widths.device), idx)
     return idx
 
 

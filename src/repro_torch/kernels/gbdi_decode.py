@@ -9,7 +9,8 @@ The plain version is :func:`repro_torch.core.gbdi_fr.fr_decode`, and the
 kernel must match it bit for bit, on any blob of the right shapes.
 
 :func:`gbdi_decode` launches the kernel when the blob lies on a CUDA device
-and counts the launch in :data:`launch_count`; for a blob on the CPU it runs
+and counts the launch in the counter ``launches.decode`` of
+:mod:`repro_torch.obs`; for a blob on the CPU it runs
 the plain version, and for any other device it raises.  The table may be a
 :class:`~repro_torch.kernels.gbdi_encode.PreparedTable`; any other table is
 prepared through the memo of :func:`~repro_torch.kernels.gbdi_encode.prepare_table`.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.format import TableLike
 from repro_torch.core.gbdi_fr import FRConfig, fr_decode
 from repro_torch.kernels import _build
@@ -35,10 +37,6 @@ from repro_torch.kernels.gbdi_encode import (
 
 #: warps of a decode block at most (``kMaxWarps``): a warp decodes one page at a time
 MAX_WARPS = 4
-
-#: kernel launches made by :func:`gbdi_decode` (CUDA tensors only)
-launch_count = 0
-
 
 def _align4(n: int) -> int:
     return (n + 3) & ~3
@@ -83,7 +81,6 @@ def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike | PreparedTable,
                 cfg: FRConfig) -> torch.Tensor:
     """Decode a blob to (n_pages, page_words) int32 pages: the CUDA kernel
     for a blob on a CUDA device, the plain version for one on the CPU."""
-    global launch_count
     dev = blob["ptrs"].device
     if dev.type == "cpu":
         return gbdi_decode_plain(blob, table, cfg)
@@ -114,9 +111,8 @@ def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike | PreparedTable,
     if rc != 0:
         raise RuntimeError(f"gbdi_decode launch failed (code {rc})")
     if n:
-        launch_count += 1
+        obs.count("launches.decode")
     return out
 
 
-__all__ = ["MAX_WARPS", "block_warps", "gbdi_decode", "gbdi_decode_plain", "launch_count",
-           "smem_bytes"]
+__all__ = ["MAX_WARPS", "block_warps", "gbdi_decode", "gbdi_decode_plain", "smem_bytes"]

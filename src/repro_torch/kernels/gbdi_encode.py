@@ -7,7 +7,8 @@ the design.  The plain version is :func:`repro_torch.core.gbdi_fr.fr_encode`,
 and the kernel must match it bit for bit.
 
 :func:`gbdi_encode` launches the kernel for a CUDA tensor and counts the
-launch in :data:`launch_count`; for a tensor on the CPU it runs the plain
+launch in the counter ``launches.encode`` of :mod:`repro_torch.obs` (its
+host work is the span ``encode``); for a tensor on the CPU it runs the plain
 version (there is no kernel there), and for any other device it raises.
 The shared-memory budget check (:func:`check_smem`) stands where the
 reference's VMEM check stood: a config whose page does not fit one block's
@@ -26,6 +27,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import obs
+from repro_torch._device import upload
 from repro_torch.core.format import BaseTable, TableLike, as_base_table, class_indices
 from repro_torch.core.gbdi_fr import FRConfig, fr_encode
 from repro_torch.kernels import _build
@@ -40,10 +43,6 @@ MAX_CLASSES = 5
 #: (``kThreads``, ``kMaxWords``): pages up to 16,640 words
 ENCODE_THREADS = 256
 MAX_PAGE_WORDS = ENCODE_THREADS * 65
-
-#: kernel launches made by :func:`gbdi_encode` (CUDA tensors only)
-launch_count = 0
-
 
 def k_padded(cfg: FRConfig) -> int:
     """Base-table padding to a multiple of 8 entries."""
@@ -79,7 +78,6 @@ class PreparedTable(NamedTuple):
 PREP_CAP = 16
 _PREP_CACHE: collections.OrderedDict[tuple, tuple[tuple[Any, ...], PreparedTable]] = \
     collections.OrderedDict()
-_PREP_STATS = {"hits": 0, "misses": 0}
 
 
 def _identity_key(table: Any) -> tuple[tuple[Any, ...], tuple] | None:
@@ -117,10 +115,10 @@ def prepare_table(table: TableLike | PreparedTable, cfg: FRConfig,
     if key is not None:
         hit = _PREP_CACHE.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], ident[0])):
-            _PREP_STATS["hits"] += 1
+            obs.count("table_prep.hit")
             _PREP_CACHE.move_to_end(key)
             return hit[1]
-    _PREP_STATS["misses"] += 1
+    obs.count("table_prep.miss")
     bt = as_base_table(table, default_width=cfg.widest_bits, device=device)
     bases, cls = (t.reshape(-1).contiguous() for t in pad_table(bt, cfg))
     prep = PreparedTable(bt, bases, cls, kernel_meta(cfg, device), cfg, device)
@@ -132,13 +130,16 @@ def prepare_table(table: TableLike | PreparedTable, cfg: FRConfig,
 
 
 def table_cache_info() -> dict[str, int]:
-    return {"hits": _PREP_STATS["hits"], "misses": _PREP_STATS["misses"],
+    """The memo's hits and misses (counters ``table_prep.hit`` and
+    ``table_prep.miss`` of :mod:`repro_torch.obs`) and its size."""
+    counters = obs.snapshot(spans=False)["counters"]
+    return {"hits": counters["table_prep.hit"], "misses": counters["table_prep.miss"],
             "size": len(_PREP_CACHE)}
 
 
 def table_cache_clear() -> None:
     _PREP_CACHE.clear()
-    _PREP_STATS["hits"] = _PREP_STATS["misses"] = 0
+    obs.reset("table_prep.hit", "table_prep.miss")
 
 
 def plain_table(table: TableLike | PreparedTable) -> TableLike:
@@ -175,7 +176,7 @@ def kernel_meta(cfg: FRConfig, device: torch.device) -> torch.Tensor:
     caps = [c for prof in cfg.profiles for c in prof]
     offs = [o for p in range(cfg.num_profiles) for o in cfg.class_lane_offsets_for(p)]
     cost8 = [8 * cfg.compressed_bytes_for_profile(p) for p in range(cfg.num_profiles)]
-    return torch.tensor(caps + offs + cost8, dtype=torch.int32, device=device)
+    return upload(caps + offs + cost8, dtype=torch.int32, device=device)
 
 
 def kernel_iparams(cfg: FRConfig, n_pages: int) -> list[int]:
@@ -213,12 +214,18 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike | PreparedTable,
                 cfg: FRConfig) -> dict[str, torch.Tensor]:
     """Encode (n_pages, page_words) int32 pages: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    global launch_count
     dev = x_pages.device
     if dev.type == "cpu":
         return gbdi_encode_plain(x_pages, table, cfg)
     if dev.type != "cuda":
         raise ValueError(f"gbdi_encode runs on cuda (kernel) or cpu (plain), not {dev}")
+    with obs.span("encode"):
+        return _encode_cuda(x_pages, table, cfg)
+
+
+def _encode_cuda(x_pages: torch.Tensor, table: TableLike | PreparedTable,
+                 cfg: FRConfig) -> dict[str, torch.Tensor]:
+    dev = x_pages.device
     n = x_pages.shape[0]
     check_cuda_input(x_pages, "x_pages", (n, cfg.page_words))
     check_smem(cfg)
@@ -253,13 +260,13 @@ def gbdi_encode(x_pages: torch.Tensor, table: TableLike | PreparedTable,
     if rc != 0:
         raise RuntimeError(f"gbdi_encode launch failed (code {rc})")
     if n:
-        launch_count += 1
+        obs.count("launches.encode")
     return blob
 
 
 __all__ = [
     "MAX_PAGE_WORDS", "PREP_CAP", "PreparedTable", "SMEM_LIMIT_BYTES", "check_prepared", "check_smem",
     "gbdi_encode", "gbdi_encode_plain", "k_padded", "kernel_iparams", "kernel_meta",
-    "launch_count", "pad_table", "plain_table", "prepare_table", "smem_bytes",
+    "pad_table", "plain_table", "prepare_table", "smem_bytes",
     "table_cache_clear", "table_cache_info",
 ]

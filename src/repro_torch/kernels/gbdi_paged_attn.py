@@ -14,9 +14,11 @@ kernel it also reads adaptive-profile pages (the page's ``profile`` picks
 its layout, as in the decode kernel).
 
 :func:`paged_attention_decode` launches the kernel for tensors on a CUDA
-device and counts the launch in :data:`launch_count`; for tensors on the
-CPU it runs :func:`paged_attention_decode_plain`, and for any other device
-it raises.  Both paths first check the geometry (16-bit words,
+device, counts the launch in the counter ``launches.attn`` of
+:mod:`repro_torch.obs` and records its host work as the span
+``paged_attn``; for tensors on the CPU it runs
+:func:`paged_attention_decode_plain`, and for any other device it raises.
+Both paths first check the geometry (16-bit words,
 ``page_words`` holding a whole number of ``Kv * hd`` rows) and the
 block's shared memory (:func:`check_smem`, where the reference's VMEM check
 stood), which also fixes the kernel's pass size: the page slots it decodes
@@ -31,6 +33,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch._device import upload
 from repro_torch.core.format import WORD16_MASK, TableLike, as_base_table
 from repro_torch.core.gbdi_fr import FRConfig, fr_decode, words_to_bf16
 from repro_torch.kernels import _build
@@ -44,8 +48,6 @@ from repro_torch.kernels.gbdi_encode import (
     pad_table,
 )
 
-#: kernel launches made by :func:`paged_attention_decode` (CUDA tensors only)
-launch_count = 0
 #: the mask sentinel, and the score at or below which a probability is 0:
 #: with -inf an all-masked run would give exp(-inf - -inf) = NaN
 MASKED = -1e30
@@ -169,7 +171,7 @@ def inv_sqrt(hd: int, device: torch.device | str) -> torch.Tensor:
     head dims (96, 112, 384 among them), and so does torch's CPU ``sqrt`` of
     a float32 scalar at hd 267; numpy's float32 ``sqrt`` is IEEE-rounded."""
     scale = np.float32(1) / np.sqrt(np.float32(hd))
-    return torch.tensor(scale, dtype=torch.float32, device=device)
+    return upload(scale, dtype=torch.float32, device=device)
 
 
 def merge_softmax(
@@ -330,15 +332,27 @@ def paged_attention_decode(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Un-normalised ``(acc, m, l)`` over the full pages before ``pos``: the
     CUDA kernel for tensors on a CUDA device, the plain version on the CPU."""
-    global launch_count
+    dev = pages_k["ptrs"].device
+    if dev.type == "cuda":
+        with obs.span("paged_attn"):
+            return _attend_cuda(q, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
+                                groups=groups)
+    check_kernel_geometry(cfg, hd)
+    check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    if dev.type != "cpu":
+        raise ValueError(f"paged_attention_decode runs on cuda (kernel) or cpu (plain), not {dev}")
+    return paged_attention_decode_plain(q, pages_k, pages_v, table, pos, cfg,
+                                        n_kv=n_kv, hd=hd, groups=groups)
+
+
+def _attend_cuda(
+    q: torch.Tensor,
+    pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
+    table: TableLike, pos: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     check_kernel_geometry(cfg, hd)
     check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
     dev = pages_k["ptrs"].device
-    if dev.type == "cpu":
-        return paged_attention_decode_plain(q, pages_k, pages_v, table, pos, cfg,
-                                            n_kv=n_kv, hd=hd, groups=groups)
-    if dev.type != "cuda":
-        raise ValueError(f"paged_attention_decode runs on cuda (kernel) or cpu (plain), not {dev}")
     B, S = _check_pages(cfg, pages_k, pages_v)
     q = q.reshape(B, n_kv, groups, hd)
     if q.device != dev:
@@ -364,7 +378,7 @@ def paged_attention_decode(
     if rc != 0:
         raise RuntimeError(f"gbdi_paged_attn launch failed (code {rc})")
     if B:
-        launch_count += 1
+        obs.count("launches.attn")
     return acc, m, l
 
 
@@ -410,6 +424,6 @@ def decode_pages(
 
 __all__ = [
     "MASKED", "attn_iparams", "channel_chunks", "check_kernel_geometry", "check_smem", "chunk_rows",
-    "decode_pages", "inv_sqrt", "launch_count", "merge_softmax", "page_tokens", "pass_slots",
+    "decode_pages", "inv_sqrt", "merge_softmax", "page_tokens", "pass_slots",
     "paged_attention_decode", "paged_attention_decode_plain", "smem_bytes",
 ]

@@ -37,6 +37,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.core.format import (
     DEFAULT_NUM_BASES,
@@ -62,7 +63,8 @@ KV_FR = FRConfig(word_bits=16, page_words=DEFAULT_PAGE_WORDS,
 
 #: attention_decode backends
 BACKENDS = ("oracle", "resident", "paged", "auto")
-#: blob fields a page slot keeps (the encode's n_spilled/n_dropped are dropped)
+#: blob fields a page slot keeps (the encode's n_spilled is dropped; its
+#: n_dropped goes to the counter ``words.dropped`` while recording)
 PAGE_KEYS = ("ptrs", "deltas", "out_vals", "out_idx", "n_out", "profile")
 
 # the cache: tensors plus the fitted BaseTable
@@ -182,6 +184,8 @@ def _compress_rows(spec: KVSpec, rows: torch.Tensor, table: TableLike) -> dict[s
     B = rows.shape[0]
     words = bf16_to_words(rows).reshape(-1, spec.fr.page_words).contiguous()
     blob = ops.encode_pages(words, table, spec.fr)
+    obs.count("words.encoded", words.numel())
+    obs.count("words.dropped", blob["n_dropped"])
     return {k: v.reshape((B, -1) + v.shape[1:]) for k, v in blob.items() if k in PAGE_KEYS}
 
 
@@ -216,14 +220,16 @@ def _check_positions(spec: KVSpec, start: int, end: int) -> None:
 def append(spec: KVSpec, cache: Cache, k: torch.Tensor, v: torch.Tensor, pos: int) -> Cache:
     """Append one token (B, 1, Kv, hd) at absolute position ``pos``; when it
     completes a page, flush the tail into the page's slots.  In place."""
-    _check_positions(spec, pos, pos + 1)
-    pt = spec.page_tokens
-    slot = pos % pt
-    cache["k_tail"][:, slot] = k[:, 0]
-    cache["v_tail"][:, slot] = v[:, 0]
-    if slot == pt - 1:
-        for side in ("k", "v"):
-            _store_pages(spec, cache, side, pos // pt, cache[f"{side}_tail"])
+    with obs.span("kv_cache.append"):
+        _check_positions(spec, pos, pos + 1)
+        pt = spec.page_tokens
+        slot = pos % pt
+        cache["k_tail"][:, slot] = k[:, 0]
+        cache["v_tail"][:, slot] = v[:, 0]
+        if slot == pt - 1:
+            with obs.span("kv_cache.flush"):
+                for side in ("k", "v"):
+                    _store_pages(spec, cache, side, pos // pt, cache[f"{side}_tail"])
     return cache
 
 
@@ -285,6 +291,12 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
     streaming-softmax identity; it needs whole rows in a page.  ``'auto'``
     picks the resident region when the cache has one, else ``'paged'``.
     """
+    with obs.span("kv_cache.attention_decode"):
+        return _attention_decode(spec, q, cache, pos, backend)
+
+
+def _attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
+                      backend: str) -> torch.Tensor:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
     if backend == "resident" and "k_dec" not in cache:
@@ -309,17 +321,18 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
         qg, cache["k_pages"], cache["v_pages"], cache["table"], pos, spec.fr,
         n_kv=Kv, hd=hd, groups=G)
     # the raw tail (the current partial page), then the softmax merge
-    pt = spec.page_tokens
-    Kt, Vt = cache["k_tail"].float(), cache["v_tail"].float()
-    tail_valid = (pos // pt) * pt + torch.arange(pt, device=qg.device) <= pos
-    lg = torch.einsum("bkgh,btkh->bkgt", qg, Kt) * inv_sqrt(hd, qg.device)
-    lg = torch.where(tail_valid, lg, MASKED)
-    m2 = lg.max(dim=-1).values
-    p2 = torch.where(lg <= MASKED_GUARD, 0.0, torch.exp(lg - m2[..., None]))
-    acc2 = torch.einsum("bkgt,btkh->bkgh", p2, Vt)
-    accm, _, lm = merge_softmax(acc, m, l, acc2, m2, p2.sum(dim=-1))
-    out = accm / lm[..., None]
-    return out.reshape(B, 1, H * hd).to(cache["k_tail"].dtype)
+    with obs.span("kv_cache.tail_merge"):
+        pt = spec.page_tokens
+        Kt, Vt = cache["k_tail"].float(), cache["v_tail"].float()
+        tail_valid = (pos // pt) * pt + torch.arange(pt, device=qg.device) <= pos
+        lg = torch.einsum("bkgh,btkh->bkgt", qg, Kt) * inv_sqrt(hd, qg.device)
+        lg = torch.where(tail_valid, lg, MASKED)
+        m2 = lg.max(dim=-1).values
+        p2 = torch.where(lg <= MASKED_GUARD, 0.0, torch.exp(lg - m2[..., None]))
+        acc2 = torch.einsum("bkgt,btkh->bkgh", p2, Vt)
+        accm, _, lm = merge_softmax(acc, m, l, acc2, m2, p2.sum(dim=-1))
+        out = accm / lm[..., None]
+        return out.reshape(B, 1, H * hd).to(cache["k_tail"].dtype)
 
 
 __all__ = ["BACKENDS", "KV_FR", "Cache", "KVSpec", "append", "attention_decode",

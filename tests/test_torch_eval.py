@@ -150,15 +150,20 @@ def test_port_imports_no_jax_and_no_reference():
 
 @pytest.mark.cuda
 def test_evaluate_cell_on_card(cuda_device):
-    from repro_torch.kernels import gbdi_decode, gbdi_encode
+    from repro_torch import obs
+
+    def launches():
+        got = obs.snapshot(spans=False)["counters"]
+        return got["launches.encode"], got["launches.decode"]
 
     wl = t_workloads().get("ml_kvcache_bf16")
     data = wl.generate(1 << 20, 0)
-    enc0, dec0 = gbdi_encode.launch_count, gbdi_decode.launch_count
+    enc0, dec0 = launches()
     cell = t_run.evaluate_cell(wl, t_codecs.FRCodec(word_bits=16), data, repeats=2)
     cpu = t_run.evaluate_cell(wl, t_codecs.FRCodec(word_bits=16, device="cpu"), data, repeats=1)
     assert cell.verified and cell.device.startswith("NVIDIA")
-    assert gbdi_encode.launch_count > enc0 and gbdi_decode.launch_count > dec0
+    enc1, dec1 = launches()
+    assert enc1 > enc0 and dec1 > dec0
     # the card's fit may differ in a float32 sum's last bit; the ratio is a
     # property of the table, so only hold it close
     assert abs(cell.bits_per_word - cpu.bits_per_word) <= 0.005 * cpu.bits_per_word

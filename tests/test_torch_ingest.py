@@ -361,7 +361,11 @@ def test_bench_compression_script_reports_dumps(dump_dirs):
 def test_dump_suite_on_card(cuda_device, tmp_path):
     """The dump families through gbdi, bdi and fr on the card (kernels A and
     B), each cell verified and equal to the CPU's ratio on a carried model."""
-    from repro_torch.kernels import gbdi_decode, gbdi_encode
+    from repro_torch import obs
+
+    def launches():
+        got = obs.snapshot(spans=False)["counters"]
+        return got["launches.encode"], got["launches.decode"]
 
     d = tmp_path / "dumps"
     for build, name in ((build_elf_core, "core.elf"), (build_bin, "c.bin"),
@@ -369,12 +373,13 @@ def test_dump_suite_on_card(cuda_device, tmp_path):
         build(tmp_path / name, seed=0)
     t_main([str(tmp_path / n) for n in ("core.elf", "c.bin", "cols.npz", "p.pkl")]
            + ["--dump-dir", str(d)])
-    enc0, dec0 = gbdi_encode.launch_count, gbdi_decode.launch_count
+    enc0, dec0 = launches()
     reg = t_workloads(str(d))
     cells = t_run.evaluate(reg, t_codecs.default_codecs(), suite="dump", codecs="gbdi,bdi,fr",
                            n_bytes=1 << 20, repeats=1)
     assert len(cells) == 12 and all(c.verified and c.device.startswith("NVIDIA") for c in cells)
-    assert gbdi_encode.launch_count > enc0 and gbdi_decode.launch_count > dec0
+    enc1, dec1 = launches()
+    assert enc1 > enc0 and dec1 > dec0
     cpu, card = t_codecs.default_codecs("cpu"), t_codecs.default_codecs()
     for wl in reg.select("dump"):
         data = wl.generate(1 << 20, 0)

@@ -15,12 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core import gbdi_fr as tfr
 from repro_torch.core.format import BaseTable
 from repro_torch.kernels import gbdi_decode as t_dec
 from repro_torch.kernels import gbdi_encode as t_enc
 from repro_torch.kernels import ops
+
+
+def _launches(kernel: str) -> int:
+    """Launches of a kernel counted so far (``encode``, ``decode``, ``attn``)."""
+    return obs.snapshot(spans=False)["counters"][f"launches.{kernel}"]
+
 
 SMALL = dict(word_bits=16, page_words=256, num_bases=6, width_set=(4, 8),
              bucket_caps=(64, 192), outlier_cap=16)
@@ -114,7 +120,7 @@ def test_wrappers_on_cpu_run_the_plain_version(kw):
     cfg = tfr.FRConfig(**kw)
     x = torch.from_numpy(_clustered(cfg, 4, 0))
     table = tfr.fit_fr_bases(x, cfg)
-    before = (t_enc.launch_count, t_dec.launch_count)
+    before = (_launches("encode"), _launches("decode"))
     blob = t_enc.gbdi_encode(x, table, cfg)
     plain = t_enc.gbdi_encode_plain(x, table, cfg)
     assert set(blob) == set(plain)
@@ -122,7 +128,7 @@ def test_wrappers_on_cpu_run_the_plain_version(kw):
         assert torch.equal(blob[k], plain[k]), k
     dec = t_dec.gbdi_decode(blob, table, cfg)
     assert torch.equal(dec, t_dec.gbdi_decode_plain(blob, table, cfg))
-    assert (t_enc.launch_count, t_dec.launch_count) == before   # no kernel ran
+    assert (_launches("encode"), _launches("decode")) == before   # no kernel ran
     dropped = int(blob["n_dropped"].sum())
     assert int((dec != x).sum()) <= dropped
 
@@ -289,11 +295,11 @@ def test_kernels_match_plain_on_card(cuda_device, kw):
     if kw == "foreign":   # a base whose width is outside the width set is dead
         table = BaseTable(table.bases, table.widths.clone().index_fill_(0, torch.tensor(
             [0, 3], device=cuda_device), 5))
-    n_enc = t_enc.launch_count
+    n_enc = _launches("encode")
     blob = t_enc.gbdi_encode(x, table, cfg)
     plain = t_enc.gbdi_encode_plain(x, table, cfg)
     torch.cuda.synchronize()
-    assert t_enc.launch_count == n_enc + 1
+    assert _launches("encode") == n_enc + 1
     assert set(blob) == set(plain)
     for k in blob:
         assert torch.equal(blob[k], plain[k]), k
@@ -397,10 +403,10 @@ def test_decode_of_handmade_blobs_on_card(cuda_device, kw):
     blob, bases, widths = handmade_blobs(cfg, 256, 5)
     blob = interop.blob_from_numpy(blob, device=cuda_device)
     table = interop.table_from_numpy(bases, widths, device=cuda_device)
-    n = t_dec.launch_count
+    n = _launches("decode")
     got = t_dec.gbdi_decode(blob, table, cfg)
     torch.cuda.synchronize()
-    assert t_dec.launch_count == n + 1
+    assert _launches("decode") == n + 1
     assert torch.equal(got, t_dec.gbdi_decode_plain(blob, table, cfg))
 
 

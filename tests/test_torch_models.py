@@ -381,14 +381,19 @@ def test_own_init_families_are_deterministic_and_follow_the_device_rule():
 def test_model_families_on_card(cuda_device):
     """The reduced model trains on the card; its four families go through
     gbdi, bdi and fr there (kernels A and B), every cell verified."""
-    from repro_torch.kernels import gbdi_decode, gbdi_encode
+    from repro_torch import obs
+
+    def launches():
+        got = obs.snapshot(spans=False)["counters"]
+        return got["launches.encode"], got["launches.decode"]
 
     reg = t_wl.default_workloads("/no/such/dir")
-    enc0, dec0 = gbdi_encode.launch_count, gbdi_decode.launch_count
+    enc0, dec0 = launches()
     cells = t_run.evaluate(reg, t_codecs.default_codecs(), suite=",".join(t_wl.MODEL_FAMILIES),
                            codecs="gbdi,bdi,fr", n_bytes=1 << 20, repeats=1)
     assert len(cells) == 12 and all(c.verified and c.device.startswith("NVIDIA") for c in cells)
-    assert gbdi_encode.launch_count > enc0 and gbdi_decode.launch_count > dec0
+    enc1, dec1 = launches()
+    assert enc1 > enc0 and dec1 > dec0
     params, grads, state = t_wl._model_state(0, str(cuda_device))
     assert all(p.device.type == "cuda" for p in tree_leaves(params) + tree_leaves(grads))
 

@@ -12,11 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core import gbdi_fr as tfr
 from repro_torch.kernels import _build
 from repro_torch.kernels import gbdi_encode as t_enc
 from repro_torch.kernels import gbdi_paged_attn as t_pa
+
+
+def _launches(kernel: str) -> int:
+    """Launches of a kernel counted so far (``encode``, ``decode``, ``attn``)."""
+    return obs.snapshot(spans=False)["counters"][f"launches.{kernel}"]
+
 
 B = 2
 FR8 = dict(word_bits=16, page_words=256, num_bases=14, width_set=(8,),
@@ -178,10 +184,10 @@ def test_wrapper_on_cpu_runs_the_plain_version(ref):
     q = torch.from_numpy(np.random.default_rng(2).normal(0, 1, (B, n_kv, groups, hd)).astype(np.float32))
     args = (q, interop.blob_from_numpy(d.k, device="cpu"), interop.blob_from_numpy(d.v, device="cpu"),
             d.ttable, 7, d.cfg)
-    before = t_pa.launch_count
+    before = _launches("attn")
     got = t_pa.paged_attention_decode(*args, n_kv=n_kv, hd=hd, groups=groups)
     want = t_pa.paged_attention_decode_plain(*args, n_kv=n_kv, hd=hd, groups=groups)
-    assert t_pa.launch_count == before
+    assert _launches("attn") == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -370,9 +376,9 @@ def test_decode_pages_on_cpu_is_fr_decode():
     cfg = tfr.FRConfig(**ADAPTIVE)
     n_kv, hd, groups, slots = 2, 64, 2, 5
     pk, pv, table, _ = _card_pages(cfg, n_kv, hd, slots, torch.device("cpu"), seed=9)
-    before = t_pa.launch_count
+    before = _launches("attn")
     k, v = t_pa.decode_pages(pk, pv, table, 3, cfg, n_kv=n_kv, hd=hd, groups=groups)
-    assert t_pa.launch_count == before
+    assert _launches("attn") == before
     for got, pages in ((k, pk), (v, pv)):
         assert got.shape == (B, 3, cfg.page_words) and got.dtype == torch.int32
         for b in range(B):
@@ -426,11 +432,11 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
     q = torch.randn(B, n_kv, groups, hd, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0))
     for pos in (slots * pt - 1, slots * pt // 3, pt - 1):
-        n0 = t_pa.launch_count
+        n0 = _launches("attn")
         got = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, n_kv=n_kv, hd=hd,
                                           groups=groups)
         torch.cuda.synchronize()
-        assert t_pa.launch_count == n0 + 1
+        assert _launches("attn") == n0 + 1
         want = t_pa.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, n_kv=n_kv,
                                                  hd=hd, groups=groups)
         if pos < pt:

@@ -390,16 +390,21 @@ def test_bench_kvcache_matches_reference(one_thread):
 def test_suite_on_card(cuda_device):
     """Every family x {gbdi, bdi, fr} on the card with its own fit: verified,
     through kernels A and B, and near the CPU's ratio."""
-    from repro_torch.kernels import gbdi_decode, gbdi_encode
+    from repro_torch import obs
 
-    enc0, dec0 = gbdi_encode.launch_count, gbdi_decode.launch_count
+    def launches():
+        got = obs.snapshot(spans=False)["counters"]
+        return got["launches.encode"], got["launches.decode"]
+
+    enc0, dec0 = launches()
     cells = t_run.evaluate(t_workloads(), t_codecs.default_codecs(), suite=SUITE,
                            codecs="gbdi,bdi,fr", n_bytes=1 << 20, repeats=1)
     cpu = t_run.evaluate(t_workloads(), t_codecs.default_codecs("cpu"), suite=SUITE,
                          codecs="gbdi,bdi,fr", n_bytes=1 << 20, repeats=1)
     assert len(cells) == 39 and all(c.verified for c in cells)
     assert all(c.device.startswith("NVIDIA") and c.power_limit for c in cells)
-    assert gbdi_encode.launch_count > enc0 and gbdi_decode.launch_count > dec0
+    enc1, dec1 = launches()
+    assert enc1 > enc0 and dec1 > dec0
     for k, c in zip(cpu, cells):
         # the card's fit may differ in a float32 sum's last bit
         assert abs(c.bits_per_word - k.bits_per_word) <= 0.02 * k.bits_per_word
