@@ -24,6 +24,13 @@ block's shared memory (:func:`check_smem`, where the reference's VMEM check
 stood), which also fixes the kernel's pass size: the page slots it decodes
 at once (:func:`pass_slots`).  :func:`decode_pages` exposes that batched
 decode alone, so it can be held bit for bit against the decode kernel.
+
+Every constant a call needs is made once on the card and reused: the
+padded table and the kernels' meta come from the memo of
+:func:`~repro_torch.kernels.gbdi_encode.prepare_table`, which kernels A and
+B share (both entry points take a :class:`PreparedTable` too), and the
+scale from :func:`inv_sqrt`.  So a warm call copies nothing from the host
+and does not wait for the stream.
 """
 from __future__ import annotations
 
@@ -41,11 +48,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.gbdi_encode import (
     MAX_CLASSES,
     SMEM_LIMIT_BYTES,
+    PreparedTable,
     check_cuda_input,
+    check_prepared,
     k_padded,
     kernel_iparams,
-    kernel_meta,
-    pad_table,
+    plain_table,
+    prepare_table,
 )
 
 #: the mask sentinel, and the score at or below which a probability is 0:
@@ -169,7 +178,19 @@ def inv_sqrt(hd: int, device: torch.device | str) -> torch.Tensor:
     (``1.0f / sqrtf(hd)``, both IEEE-rounded), as a 0-dim float32 tensor.  A
     double ``1 / math.sqrt(hd)`` rounded to float32 differs from it at many
     head dims (96, 112, 384 among them), and so does torch's CPU ``sqrt`` of
-    a float32 scalar at hd 267; numpy's float32 ``sqrt`` is IEEE-rounded."""
+    a float32 scalar at hd 267; numpy's float32 ``sqrt`` is IEEE-rounded.
+
+    The tensor is made once per ``(hd, device)`` and the same object is
+    returned after that, so a warm decode step makes no blocking copy to the
+    card for it.  It is shared: read it, never write to it in place."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _inv_sqrt(int(hd), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_sqrt(hd: int, device: torch.device) -> torch.Tensor:
     scale = np.float32(1) / np.sqrt(np.float32(hd))
     return upload(scale, dtype=torch.float32, device=device)
 
@@ -189,7 +210,7 @@ def merge_softmax(
 def paged_attention_decode_plain(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
-    table: TableLike, pos: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
+    table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
     chunk_slots: int = PLAIN_CHUNK_SLOTS,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version, on whatever device the pages lie.
@@ -209,7 +230,7 @@ def paged_attention_decode_plain(
     acc = torch.zeros(B, n_kv, groups, hd, dtype=torch.float32, device=dev)
     m = torch.full((B, n_kv, groups), MASKED, dtype=torch.float32, device=dev)
     l = torch.zeros(B, n_kv, groups, dtype=torch.float32, device=dev)
-    bt = as_base_table(table, default_width=cfg.widest_bits, device=dev)
+    bt = as_base_table(plain_table(table), default_width=cfg.widest_bits, device=dev)
 
     def decode(pages: dict[str, torch.Tensor], s0: int, s1: int) -> torch.Tensor:
         blob = {k: v[:, s0:s1].reshape((B * (s1 - s0),) + v.shape[2:]) for k, v in pages.items()}
@@ -319,16 +340,20 @@ def _blob_ptrs(cfg: FRConfig, pages: dict[str, torch.Tensor]) -> list[int]:
             pages["profile"].data_ptr() if cfg.num_profiles > 1 else 0]
 
 
-def _table_ptrs(table: TableLike, cfg: FRConfig, dev: torch.device) -> tuple[list[torch.Tensor], list[int]]:
-    bt = as_base_table(table, default_width=cfg.widest_bits, device=dev)
-    keep = [*(t.reshape(-1).contiguous() for t in pad_table(bt, cfg)), kernel_meta(cfg, dev)]
-    return keep, [t.data_ptr() for t in keep]
+def _table_ptrs(table: TableLike | PreparedTable, cfg: FRConfig,
+                dev: torch.device) -> tuple[PreparedTable, list[int]]:
+    """The memoised table (:func:`prepare_table`, shared with kernels A and
+    B) and its padded bases', class indices' and meta's pointers."""
+    prep = prepare_table(table, cfg, dev)
+    check_prepared(prep, cfg)
+    return prep, [prep.bases.data_ptr(), prep.cls.data_ptr(), prep.meta.data_ptr()]
 
 
 def paged_attention_decode(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
-    table: TableLike, pos: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
+    table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int,
+    groups: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Un-normalised ``(acc, m, l)`` over the full pages before ``pos``: the
     CUDA kernel for tensors on a CUDA device, the plain version on the CPU."""
@@ -348,7 +373,8 @@ def paged_attention_decode(
 def _attend_cuda(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
-    table: TableLike, pos: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
+    table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int,
+    groups: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     check_kernel_geometry(cfg, hd)
     check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
@@ -384,7 +410,8 @@ def _attend_cuda(
 
 def decode_pages(
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
-    table: TableLike, n_valid: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
+    table: TableLike | PreparedTable, n_valid: int, cfg: FRConfig, *, n_kv: int, hd: int,
+    groups: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The words of page slots ``[0, n_valid)`` of every batch row, K and V,
     as int32 ``(B, n_valid, page_words)``: on a CUDA device, from the
@@ -398,7 +425,7 @@ def decode_pages(
     n_valid = max(0, min(S, int(n_valid)))
     dev = pages_k["ptrs"].device
     if dev.type == "cpu":
-        bt = as_base_table(table, default_width=cfg.widest_bits, device=dev)
+        bt = as_base_table(plain_table(table), default_width=cfg.widest_bits, device=dev)
 
         def plain(pages: dict[str, torch.Tensor]) -> torch.Tensor:
             blob = {k: v[:, :n_valid].reshape((B * n_valid,) + v.shape[2:]) for k, v in pages.items()}

@@ -386,6 +386,71 @@ def test_decode_pages_on_cpu_is_fr_decode():
             assert torch.equal(got[b], want)
 
 
+def _prep_counts() -> tuple[int, int]:
+    info = t_enc.table_cache_info()
+    return info["hits"], info["misses"]
+
+
+def test_attention_table_is_the_prep_memo_entry():
+    """C's wrapper takes its padded table and meta from the memo A and B use:
+    a repeat call with the same table is one hit and hands back the same
+    tensors; an in-place write to the bases bumps their version and misses,
+    and the new entry holds the new values."""
+    cfg = tfr.FRConfig(**FR48)
+    cpu = torch.device("cpu")
+    table = interop.table_from_numpy(np.arange(14) * 37, [4, 8] * 7, device="cpu")
+    hits, misses = _prep_counts()
+    prep, ptrs = t_pa._table_ptrs(table, cfg, cpu)
+    assert _prep_counts() == (hits, misses + 1)
+    assert prep is t_enc.prepare_table(table, cfg, cpu)
+    assert ptrs == [prep.bases.data_ptr(), prep.cls.data_ptr(), prep.meta.data_ptr()]
+    pad_bases, pad_cls = t_enc.pad_table(table, cfg)
+    assert torch.equal(prep.bases, pad_bases.reshape(-1))
+    assert torch.equal(prep.cls, pad_cls.reshape(-1))
+    assert torch.equal(prep.meta, t_enc.kernel_meta(cfg, cpu))
+    hits, misses = _prep_counts()
+    again, ptrs_again = t_pa._table_ptrs(table, cfg, cpu)
+    assert _prep_counts() == (hits + 1, misses)
+    assert again is prep and ptrs_again == ptrs
+    assert t_pa._table_ptrs(prep, cfg, cpu)[0] is prep
+    table.bases[3] = 1234                      # an in-place write: a new version
+    new, _ = t_pa._table_ptrs(table, cfg, cpu)
+    assert _prep_counts() == (hits + 1, misses + 1)
+    assert new is not prep and int(new.bases[3]) == 1234 and int(prep.bases[3]) == 3 * 37
+
+
+def test_prepared_table_gives_the_same_state_on_cpu():
+    """The wrapper, its plain version and the pass decode's entry point give
+    bit-identical results for a BaseTable and for its PreparedTable."""
+    cfg = tfr.FRConfig(**ADAPTIVE)
+    n_kv, hd, groups, slots = 2, 64, 2, 4
+    pk, pv, table, pt = _card_pages(cfg, n_kv, hd, slots, torch.device("cpu"), seed=11)
+    prep = t_enc.prepare_table(table, cfg, torch.device("cpu"))
+    q = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (B, n_kv, groups, hd))
+                         .astype(np.float32))
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+    for pos in (slots * pt - 1, pt + 1):
+        want = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+        for got in (t_pa.paged_attention_decode(q, pk, pv, prep, pos, cfg, **geom),
+                    t_pa.paged_attention_decode_plain(q, pk, pv, prep, pos, cfg, **geom)):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    for g, w in zip(t_pa.decode_pages(pk, pv, prep, slots, cfg, **geom),
+                    t_pa.decode_pages(pk, pv, table, slots, cfg, **geom)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 112, 128, 256, 267, 384, 512])
+def test_inv_sqrt_is_memoised_float32(hd):
+    """inv_sqrt keeps its float32 bits and hands back one tensor per device."""
+    want = np.float32(1) / np.sqrt(np.float32(hd))
+    got = t_pa.inv_sqrt(hd, "cpu")
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert got.numpy().tobytes() == want.tobytes()
+    assert t_pa.inv_sqrt(hd, "cpu") is got
+    assert t_pa.inv_sqrt(hd, torch.device("cpu")) is got
+
+
 # ---------------------------------------------------------------------------
 # on the card: kernel vs plain
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ from the parts that run: JAX ``KVSpec`` and ``init_compressed`` without a
 resident region, ``fr_encode``/``fr_decode``, ``merge_softmax`` and the
 Pallas paged-attention kernel in interpret mode, with the reference's
 attention arithmetic written out in ``jnp``.  Everything runs on the CPU
-(``device="cpu"``), where the kernels' wrappers run their plain versions.
+(``device="cpu"``), where the kernels' wrappers run their plain versions,
+except the test marked ``cuda``, which holds the warm paged step on the card
+to no blocking copy and no synchronising call.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -16,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core import gbdi_fr as tfr
+from repro_torch.kernels import gbdi_encode as t_enc
+from repro_torch.kernels import gbdi_paged_attn as t_pa
 from repro_torch.serving import kv_cache as tkv
 from repro_torch.serving.engine import KVSession
 
@@ -440,3 +444,89 @@ def test_session_needs_a_card_or_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KVSession(spec, B, table)
     assert KVSession(spec, B, table, device="cpu").cache["k_tail"].device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# on the card: the warm paged step copies nothing from the host
+# ---------------------------------------------------------------------------
+
+#: (n_kv, groups, head_dim): one chip's share of mixtral-8x22b under 8-way
+#: tensor parallelism, and musicgen-large whole
+CARD_GEOMS = {"mixtral": (1, 6, 128), "musicgen": (32, 1, 64)}
+#: counters a checked step reports, as differences
+STEP_COUNTERS = ("uploads", "launches.attn", "launches.encode", "table_prep.miss")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_GEOMS))
+def test_warm_paged_step_makes_no_blocking_copy_on_card(name):
+    """A 2-layer paged cache at a decode cell's KV geometry, warmed by one
+    plain and one flush step (the first a cold memo miss): a warm plain step
+    and a warm flush step upload nothing, miss no prepared table and make no
+    synchronising call, and the plain step gives the cold step's outputs bit
+    for bit.  musicgen's page holds one token, so each of its steps flushes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    n_kv, groups, hd = CARD_GEOMS[name]
+    pt = tkv.KVSpec(n_kv, hd, max_len=1).page_tokens
+    ctx = 8 * pt
+    plain_pos, flush_pos = ctx, ctx + max(pt - 1, 1)
+    spec = tkv.KVSpec(n_kv, hd, max_len=flush_pos + 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    means = 2 * torch.randn(n_kv, hd, generator=gen, device=dev)
+
+    def kv(n):
+        noise = torch.randn(B, n, n_kv, hd, generator=gen, device=dev)
+        return (means + 0.1 * noise).to(torch.bfloat16)
+
+    prefixes = [(kv(ctx), kv(ctx)) for _ in range(2)]
+    table = tfr.fit_fr_bases(tfr.bf16_to_words(torch.cat(prefixes[0])).reshape(-1), spec.fr)
+    caches = []
+    for k, v in prefixes:
+        cache = tkv.init_compressed(spec, B, table, device=dev)
+        tkv.extend(spec, cache, k, v, 0)
+        caches.append(cache)
+    toks = {pos: [(kv(1), kv(1), torch.randn(B, 1, n_kv * groups, hd, generator=gen, device=dev)
+                   .to(torch.bfloat16)) for _ in caches] for pos in (plain_pos, flush_pos)}
+
+    def step(pos):
+        outs = []
+        for cache, (k, v, q) in zip(caches, toks[pos]):
+            tkv.append(spec, cache, k, v, pos)
+            outs.append(tkv.attention_decode(spec, q, cache, pos, backend="auto"))
+        return outs
+
+    def counters():
+        c = obs.snapshot(spans=False)["counters"]
+        return {key: c[key] for key in STEP_COUNTERS}
+
+    def checked(pos):
+        before = counters()
+        with obs.recording():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs = step(pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        after = counters()
+        return outs, {key: after[key] - before[key] for key in STEP_COUNTERS}
+
+    t_enc.table_cache_clear()
+    t_pa._inv_sqrt.cache_clear()
+    before = counters()
+    cold = [out.clone() for out in step(plain_pos)]
+    torch.cuda.synchronize()
+    assert counters()["table_prep.miss"] - before["table_prep.miss"] == 1
+    step(flush_pos)
+
+    warm, got = checked(plain_pos)
+    flushes = 2 * len(caches) if pt == 1 else 0
+    assert got == {"uploads": 0, "launches.attn": len(caches), "launches.encode": flushes,
+                   "table_prep.miss": 0}
+    for w, c in zip(warm, cold):
+        assert torch.equal(w.view(torch.int16), c.view(torch.int16))
+    _, got = checked(flush_pos)
+    assert got == {"uploads": 0, "launches.attn": len(caches),
+                   "launches.encode": 2 * len(caches), "table_prep.miss": 0}
