@@ -46,7 +46,10 @@ Phases, in order; any failure exits non-zero before the final line:
    yardstick ``scaled_dot_product_attention`` over the same context held
    as a raw bf16 cache; then decode-all + that SDPA call, and the per-step
    latency (append + attend) of the paged, resident and oracle backends
-   at contexts of 4,096 and 32,768;
+   at contexts of 4,096 and 32,768; (b) the ring instantiation of the
+   paged-attention kernel (a sliding-window layer) at :data:`RING`, against
+   its plain version at each position, launches counted, and timed as above
+   beside its plain version and SDPA (:func:`ring_attention`);
 8. the paper's suite (:func:`paper_suite`): every registered family (the
    twelve dump families, the four model-backed ML families, trained on the
    card, and ``ml_kvcache_bf16``) x {gbdi, bdi, fr} at 1 MiB fitted on the
@@ -141,7 +144,8 @@ Phases, in order; any failure exits non-zero before the final line:
    and kernel C at each attention geometry within ``ATTN_TOL``; launches
    counted over (c).
 
-It ends with one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+It ends with one ``{"kernels": [...]}`` line (the paged-attention kernel's
+ring instantiation on a row of its own, ``gbdi_paged_attn.ring``), then the ``{"ok": true, ...}``
 line.  Exit code 2: no CUDA device.
 """
 from __future__ import annotations
@@ -184,6 +188,14 @@ ATTN_TOL = {"out": 1e-4, "m": 1e-5, "l": 1e-4}
 #: n_kv_heads 8, head_dim 16384 / 128 = 128, 128 query heads), batch 8, 32,768 tokens
 SERVE = {"batch": 8, "n_kv": 8, "hd": 128, "heads": 128, "max_len": 32768, "prefill": 32760,
          "steps": 7}
+#: phase 7 (b): kernel C's ring instantiation at the benchmark cell
+#: trinity-large-preview.decode-16k's geometry (one chip's share under 8-way
+#: tensor parallelism: 1 KV head of 128, 6 query heads, 16-token pages), batch
+#: 128, a window of 4,096 tokens in a ring of 256 page slots; positions before
+#: the ring fills, at a page's first token, at a flush and mid-page once the
+#: ring has wrapped nearly four times (the times at the last)
+RING = {"batch": 128, "n_kv": 1, "hd": 128, "groups": 6, "window": 4096,
+        "positions": (3207, 16320, 16383, 16360)}
 SEED = 12
 
 
@@ -281,6 +293,107 @@ def attn_errors(acc, m, l, pacc, pm, pl) -> dict:
                          .abs().max()) if live.any() else 0.0,
             "m": float(((m - pm).abs() / (1 + pm.abs())).max()),
             "l": float(((l - pl).abs() / pl)[live].max()) if live.any() else 0.0}
+
+
+def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> dict:
+    """Phase 7 (b): kernel C's ring instantiation (``window`` > 0) over a
+    ring of ``ceil(window / page_tokens)`` slots of seeded channel-structured
+    bf16 K/V, at each of ``RING["positions"]`` against its plain version
+    within ``ATTN_TOL``, one launch a call; then at the last position its
+    time (CUDA events, warmed, median), its bound on this card (bytes: the
+    pages holding tokens of ``[lo, cur * pt)``, q and the state; operations
+    as phase 7 over those tokens), its plain version's time and, as the
+    library yardstick, SDPA over as many tokens held raw.  Returns the
+    ``kernels`` line's fields, launches included."""
+    import torch
+
+    from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg = kvc.KV_FR
+    n_kv, hd, G, W = RING["n_kv"], RING["hd"], RING["groups"], RING["window"]
+    geom = dict(n_kv=n_kv, hd=hd, groups=G, window=W)
+    pt = pa_mod.page_tokens(cfg, n_kv, hd)
+    R, H = -(-W // pt), n_kv * G
+    gen = torch.Generator(device=card).manual_seed(SEED + 3)
+    means = torch.randn(1, 1, n_kv, hd, generator=gen, device=card) * 2
+
+    def tokens():     # (batch, R * pt, n_kv, hd), phase 5's channel structure
+        noise = torch.randn(batch, R * pt, n_kv, hd, generator=gen, device=card)
+        return (means + 0.1 * noise).to(torch.bfloat16)
+
+    ks, vs = tokens(), tokens()
+    table = fit_fr_bases(bf16_to_words(torch.cat([ks[0, :32].reshape(-1),
+                                                  vs[0, :32].reshape(-1)])), cfg)
+
+    def slots(x):
+        words = bf16_to_words(x).reshape(-1, cfg.page_words).contiguous()
+        return {k: v.reshape((batch, R) + v.shape[1:])
+                for k, v in enc_mod.gbdi_encode(words, table, cfg).items()
+                if k not in ("n_spilled", "n_dropped")}
+
+    pk, pv = slots(ks), slots(vs)
+    q = torch.randn(batch, n_kv, G, hd, generator=gen, device=card) * 4
+
+    def attend():
+        return pa_mod.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+
+    def attn_launches() -> int:
+        return launch_counts("gbdi_paged_attn")["gbdi_paged_attn"]
+
+    errs, launches = {"out": 0.0, "m": 0.0, "l": 0.0}, 0
+    for pos in RING["positions"]:
+        n_valid, cur, lo = pa_mod.ring_bounds(R, pos, pt, W)
+        before = attn_launches()
+        got = attend()
+        n = attn_launches() - before
+        want = pa_mod.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, **geom)
+        err = attn_errors(*got, *want)
+        if n != 1 or any(err[k] > ATTN_TOL[k] for k in ATTN_TOL):
+            raise AssertionError(f"[7b] pos {pos}: {n} launches, ring kernel vs plain {err} "
+                                 f"(tolerances {ATTN_TOL})")
+        launches += n
+        for k, v in err.items():
+            errs[k] = max(errs[k], v)
+        step = ("a flush step, its slot reused" if pos % pt == pt - 1
+                else "before the ring fills" if cur < R else f"{pos % pt} into page {cur}")
+        log(f"[7b] ring pos {pos} ({step}): page {cur}, window from {lo}, {n_valid} slots "
+            f"read (ring wrapped {cur // R} times): max|acc/l| err {err['out']:.3g}, m rel err "
+            f"{err['m']:.3g}, l rel err {err['l']:.3g}")
+
+    def median_ms(fn):
+        fn()
+        times = sorted(event_ms(fn) for _ in range(TIMING_REPEATS))
+        return times[len(times) // 2]
+
+    _, cur, lo = pa_mod.ring_bounds(R, pos, pt, W)
+    n_pages, T = cur - lo // pt, cur * pt - lo          # the pages holding [lo, cur * pt)
+    before = attn_launches()
+    ms = median_ms(attend)
+    launches += attn_launches() - before
+    plain_ms = event_ms(lambda: pa_mod.paged_attention_decode_plain(q, pk, pv, table, pos, cfg,
+                                                                    **geom))
+    page_bytes = 4 * (cfg.ptr_lanes + cfg.delta_lanes + 2 * cfg.outlier_cap + 1)
+    n_bytes = 2 * batch * n_pages * page_bytes + q.numel() * 4 + batch * H * (hd + 2) * 4
+    bytes_ms = n_bytes / peak * 1e3
+    ops_ms = (4.0 * batch * H * T * hd / F32_OPS_S
+              + 4.0 * 2 * batch * n_pages * cfg.page_words / INT_OPS_S) * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh = q.reshape(batch, H, 1, hd).to(torch.bfloat16)
+    Kr, Vr = (x[:, :T].permute(0, 2, 1, 3).contiguous() for x in (ks, vs))
+    lib_ms = median_ms(lambda: sdpa(qh, Kr, Vr, enable_gqa=True))
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
+           "launches": launches, "max_abs_err": errs["out"]}
+    log(f"[7b] ring instantiation at B={batch} Kv={n_kv} G={G} hd={hd}, window {W} in {R} "
+        f"slots, pos {pos} ({n_pages} pages, {T} tokens): {ms:.4f} ms (median of "
+        f"{TIMING_REPEATS}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} (bytes "
+        f"{bytes_ms:.4f} ms = {n_bytes} B / {peak:.3g} B/s; operations {ops_ms:.4f} ms); "
+        f"roofline share {row['bound_ms'] / ms:.3f}; plain {plain_ms:.3f} ms; SDPA over {T} raw "
+        f"tokens {lib_ms:.4f} ms; {launches} launches; largest errors {errs} ({card_tag(card)})")
+    return row
 
 
 def hold_to_cpu(workloads: list, card, n_bytes: int, tag: str) -> None:
@@ -2683,6 +2796,8 @@ def main() -> int:
                 f"(host clock, synchronised, {steps} steps after one warm-up)")
             del sess
             torch.cuda.empty_cache()
+    ring_row = ring_attention(dev, event_ms, peak)
+    torch.cuda.empty_cache()
 
     # -- phase 8: the paper's suite on the card ---------------------------------
     t8 = time.perf_counter()
@@ -2854,6 +2969,11 @@ def main() -> int:
         "max_abs_err": max([attn_err["out"]] + [r["out"] for r in zoo["attn"]]),
         "ms": pa_ms, "plain_ms": pa_plain_ms,
         "bound_ms": pa_bound, "bound_by": pa_bound_by, "library_ms": lib_ms,
+    })
+    kernels.append({
+        "name": "gbdi_paged_attn.ring", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gbdi_paged_attn.cu",
+        "replaces": replaces["gbdi_paged_attn"], **ring_row,
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi)

@@ -173,8 +173,9 @@ def _encode_entry(cfg: Any, threads: int, max_words: int, max_classes: int) -> s
 
 
 def _attn_entry(cpl: int) -> str:
-    """``attn_kernel<CPL, WIDE>`` as ``attn_kernel_for`` picks it (mangled)."""
-    return f"attn_kernelILi{min(cpl, 8)}ELb{int(cpl > 8)}EE"
+    """``attn_kernel<CPL, WIDE, false>`` as ``attn_kernel_for<false>`` picks
+    it (mangled): the full-attention instantiation."""
+    return f"attn_kernelILi{min(cpl, 8)}ELb{int(cpl > 8)}ELb0EE"
 
 
 def _codec_rows() -> list[KernelCost]:

@@ -55,6 +55,16 @@
 //    shared memory; then the 8 V rows come into registers and acc = acc *
 //    alpha + p.V runs in registers.  q stays in shared memory.
 //
+// Ring mode (a sliding-window layer, its own instantiation: attn_kernel<.,
+// ., true>).  The S page slots are a ring: page p lives in slot p % S, and
+// the kernel is given cur = pos / pt and lo = pos - window + 1.  It reads
+// slots [0, min(S, cur)); slot s holds page cur - 1 - ((cur - 1 - s) mod S),
+// and a token counts only where its position lies in [lo, cur * pt).  That
+// masks the oldest page's tokens before the window and, on the step whose
+// append flushed page cur into slot cur % S, that whole slot (the formula
+// gives it page cur - S, wholly before the window; the raw tail holds page
+// cur).  Everything else is the full-attention kernel's.
+//
 // Rows past one block (16 warps x 8 rows at 4 channels a lane) go to
 // further row chunks on grid axis z, each decoding the pages again.  Heads
 // wider than 256 channels also split into channel chunks on axis z (z = row
@@ -113,6 +123,7 @@ struct AttnArgs {
   short* out_k;  // decode_pages only: (B, n_valid, P) bf16 bits
   short* out_v;
   int B, S, n_valid, splits, run, n_kv, groups, hd, pt, N;
+  int ring_cur, ring_lo;  // ring mode only: pos / pt and pos - window + 1
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
@@ -634,19 +645,40 @@ __device__ __forceinline__ void tile_dots(const float* qr, const float (&tile)[k
   }
 }
 
+// The token of the tile that lane `lane` scores (lane bits 4..2, as
+// warp_sum8 leaves the sums).
+__device__ __forceinline__ int tile_token(int lane) {
+  return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+}
+
+// Ring mode: whether token tt of the pass that starts at slot s0 lies in
+// the window, [lo, cur * pt) by position (see the head of this file).
+__device__ __forceinline__ bool ring_live(const AttnArgs& a, int s0, int tt, int T) {
+  if (tt >= T) return false;
+  const int k = tt / a.pt, slot = s0 + k;
+  const int page = a.ring_cur - 1 - (a.ring_cur - 1 - slot) % a.S;
+  const int p = page * a.pt + tt - k * a.pt;
+  return p >= a.ring_lo && p < a.ring_cur * a.pt;
+}
+
 // The online softmax of NR consecutive rows (from rl, of the block's chunk)
 // given each row's dot product for the token t of this lane (lane bits 4..2):
 // the tile's max, p = exp(s - m) (0 where s <= -1e29), and the updates of m,
 // l, alpha and the tile's p in shared memory.  The rows' chains are
-// independent, so a warp has NR of them in flight.
-template <int NR>
+// independent, so a warp has NR of them in flight.  RING: `live` says
+// whether the lane's token counts (ring_live), in place of t0 + t < T.
+template <int NR, bool RING>
 __device__ __forceinline__ void online_softmax(const AttnSmem& s, const float (&dot)[NR], int rl,
-                                               int t0, int T, float scale, int lane) {
-  const int tl = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+                                               int t0, int T, float scale, int lane, bool live) {
+  const int tl = tile_token(lane);
   float sc[NR], mx[NR];
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
-    sc[j] = t0 + tl < T ? dot[j] * scale : kMasked;
+    if constexpr (RING) {
+      sc[j] = live ? dot[j] * scale : kMasked;
+    } else {
+      sc[j] = t0 + tl < T ? dot[j] * scale : kMasked;
+    }
     mx[j] = sc[j];
   }
 #pragma unroll
@@ -681,9 +713,10 @@ __device__ __forceinline__ void online_softmax(const AttnSmem& s, const float (&
 // Scores and the online softmax of NR consecutive rows of one kv head
 // against its K tile: each row's 8 dot products, reduced across lanes by
 // warp_sum8 (every lane: its shuffles are full-warp).
-template <int CPL, int NR>
+template <int CPL, int NR, bool RING>
 __device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile)[kTile][CPL],
-                                           int rl, int t0, int T, int hd, float scale, int lane) {
+                                           int rl, int t0, int T, int hd, float scale, int lane,
+                                           bool live) {
   float dot[NR];
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
@@ -691,16 +724,17 @@ __device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile
     tile_dots<CPL>(s.q + (rl + j) * hd, tile, hd, hd, lane, part);
     dot[j] = warp_sum8(part, lane);
   }
-  online_softmax<NR>(s, dot, rl, t0, T, scale, lane);
+  online_softmax<NR, RING>(s, dot, rl, t0, T, scale, lane, live);
 }
 
 // The same for one row of a head wider than a channel chunk: the K tile of
 // kv head kv comes 256 channels at a time, and the partial dots of the
 // blocks are summed before the reduction, so every channel chunk scores
 // the whole head.
+template <bool RING>
 __device__ __forceinline__ void score_row_wide(const AttnSmem& s, const unsigned short* kside,
                                                int rl, int kv, int t0, int T, int hd, int rowlen,
-                                               float scale, int lane) {
+                                               float scale, int lane, bool live) {
   float part[kTile] = {};
   for (int c0 = 0; c0 < hd; c0 += kChunkChannels) {
     float tile[kTile][kMaxCpl];
@@ -709,7 +743,7 @@ __device__ __forceinline__ void score_row_wide(const AttnSmem& s, const unsigned
     tile_dots<kMaxCpl>(s.q + rl * hd + c0, tile, n, hd, lane, part);
   }
   const float dot[1] = {warp_sum8(part, lane)};
-  online_softmax<1>(s, dot, rl, t0, T, scale, lane);
+  online_softmax<1, RING>(s, dot, rl, t0, T, scale, lane, live);
 }
 
 // acc = acc * alpha + p . V for one row against the kv head's V tile.
@@ -730,7 +764,8 @@ __device__ __forceinline__ void update_row(const AttnSmem& s, const float (&tile
 }
 
 // WIDE: a head past 256 channels (CPL 8), split into channel chunks.
-template <int CPL, bool WIDE>
+// RING: the slots are a sliding window's ring (the head of this file).
+template <int CPL, bool WIDE, bool RING>
 __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   constexpr int RPW = rows_per_warp(CPL);
   extern __shared__ int smem[];
@@ -766,9 +801,11 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   const unsigned short* kside = s.words;
   const unsigned short* vside = s.words + static_cast<size_t>(a.N) * a.g.P;
 
-  run_passes(a, s, b, first, last, [&](int, int n_s) {
+  run_passes(a, s, b, first, last, [&]([[maybe_unused]] int s0, int n_s) {
     const int T = n_s * a.pt;
     for (int t0 = 0; t0 < T; t0 += kTile) {
+      bool live = false;
+      if constexpr (RING) live = ring_live(a, s0, t0 + tile_token(lane), T);
       // the warp's rows by kv head (one segment where they share one): a K
       // tile, the rows' scores two at a time, then a V tile and the updates
       float tile[kTile][CPL];
@@ -776,13 +813,14 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
         const int hi = min(n_rows, lo + a.groups - g0);
         if constexpr (WIDE) {
           for (int i = lo; i < hi; ++i)
-            score_row_wide(s, kside, wr0 + i, kv, t0, T, hd, rowlen, scale, lane);
+            score_row_wide<RING>(s, kside, wr0 + i, kv, t0, T, hd, rowlen, scale, lane, live);
         } else {
           load_tile<CPL>(kside, tile, t0, T, kv * hd, rowlen, hd, hd, lane);
           int i = lo;
           if constexpr (CPL < kMaxCpl)  // at 8 channels a lane the tile leaves no room
-            for (; i + 1 < hi; i += 2) score_rows<CPL, 2>(s, tile, wr0 + i, t0, T, hd, scale, lane);
-          for (; i < hi; ++i) score_rows<CPL, 1>(s, tile, wr0 + i, t0, T, hd, scale, lane);
+            for (; i + 1 < hi; i += 2)
+              score_rows<CPL, 2, RING>(s, tile, wr0 + i, t0, T, hd, scale, lane, live);
+          for (; i < hi; ++i) score_rows<CPL, 1, RING>(s, tile, wr0 + i, t0, T, hd, scale, lane, live);
         }
         __syncwarp();
         load_tile<CPL>(vside, tile, t0, T, kv * hd + c0, rowlen, hc, hd, lane);
@@ -917,14 +955,15 @@ size_t smem_of(const int* ip) {
 
 using Kernel = void (*)(AttnArgs);
 
+template <bool RING>
 Kernel attn_kernel_for(int hd) {
   if (hd < 1) return nullptr;
   switch (cpl_of(hd)) {
-    case 1: return attn_kernel<1, false>;
-    case 2: return attn_kernel<2, false>;
-    case 4: return attn_kernel<4, false>;
-    case 8: return attn_kernel<8, false>;
-    default: return attn_kernel<kMaxCpl, true>;
+    case 1: return attn_kernel<1, false, RING>;
+    case 2: return attn_kernel<2, false, RING>;
+    case 4: return attn_kernel<4, false, RING>;
+    case 8: return attn_kernel<8, false, RING>;
+    default: return attn_kernel<kMaxCpl, true, RING>;
   }
 }
 
@@ -932,7 +971,7 @@ Kernel attn_kernel_for(int hd) {
 // 16-bit words), -4 (pass size outside 1..8)
 int check(const AttnArgs& a, size_t smem) {
   if (smem > static_cast<size_t>(kSmemLimit)) return -1;
-  if (!attn_kernel_for(a.hd)) return -2;
+  if (a.hd < 1) return -2;
   if (a.g.word_bits != 16) return -3;
   if (a.N < 1 || a.N > kMaxPassSlots) return -4;
   return 0;
@@ -944,21 +983,14 @@ int z_chunks(const AttnArgs& a) {
   return (R ? (kg + R - 1) / R : 1) * chan_chunks(a.hd);
 }
 
-}  // namespace
-
-extern "C" long long gbdi_paged_attn_smem_bytes(const int* ip) {
-  return static_cast<long long>(smem_of(ip));
-}
-
-// Blocks of the attention kernel one SM holds at once (registers and shared
-// memory both counted), or a negative code as gbdi_paged_attn_launch.
-extern "C" int gbdi_paged_attn_blocks_per_sm(const int* ip) {
+template <bool RING>
+int blocks_per_sm(const int* ip) {
   AttnArgs a = unpack_params(ip);
   a.g = page_geom(nullptr, ip);
   const size_t smem = smem_of(ip);
   const int rc = check(a, smem);
   if (rc) return rc;
-  const Kernel k = attn_kernel_for(a.hd);
+  const Kernel k = attn_kernel_for<RING>(a.hd);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return -static_cast<int>(e) - 100;
@@ -967,15 +999,14 @@ extern "C" int gbdi_paged_attn_blocks_per_sm(const int* ip) {
   return e == cudaSuccess ? n : -static_cast<int>(e) - 100;
 }
 
-// Returns 0, a cudaError_t, or a negative code as check() above.
-extern "C" int gbdi_paged_attn_launch(const long long* ptr, const int* ip, void* stream) {
-  const AttnArgs a = unpack(ptr, ip);
+template <bool RING>
+int launch(const AttnArgs& a, const int* ip, void* stream) {
   const size_t smem = smem_of(ip);
   const int rc = check(a, smem);
   if (rc) return rc;
   if (a.B == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Kernel k = attn_kernel_for(a.hd);
+  const Kernel k = attn_kernel_for<RING>(a.hd);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -984,6 +1015,35 @@ extern "C" int gbdi_paged_attn_launch(const long long* ptr, const int* ip, void*
   if (e != cudaSuccess) return static_cast<int>(e);
   merge_kernel<<<a.B * a.n_kv * a.groups, kMergeThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" long long gbdi_paged_attn_smem_bytes(const int* ip) {
+  return static_cast<long long>(smem_of(ip));
+}
+
+// Blocks of the attention kernel one SM holds at once (registers and shared
+// memory both counted), or a negative code as gbdi_paged_attn_launch.
+extern "C" int gbdi_paged_attn_blocks_per_sm(const int* ip) { return blocks_per_sm<false>(ip); }
+
+// The same for the ring instantiation.
+extern "C" int gbdi_paged_attn_ring_blocks_per_sm(const int* ip) { return blocks_per_sm<true>(ip); }
+
+// Returns 0, a cudaError_t, or a negative code as check() above.
+extern "C" int gbdi_paged_attn_launch(const long long* ptr, const int* ip, void* stream) {
+  return launch<false>(unpack(ptr, ip), ip, stream);
+}
+
+// Ring mode: ring = {cur, lo} (pos / pt and pos - window + 1); the S page
+// slots are the ring and n_valid is min(S, cur).  Returns as
+// gbdi_paged_attn_launch.
+extern "C" int gbdi_paged_attn_ring_launch(const long long* ptr, const int* ip, const int* ring,
+                                           void* stream) {
+  AttnArgs a = unpack(ptr, ip);
+  a.ring_cur = ring[0];
+  a.ring_lo = ring[1];
+  return launch<true>(a, ip, stream);
 }
 
 // The batched pass decode alone: words of page slots [0, n_valid).

@@ -25,6 +25,13 @@ stood), which also fixes the kernel's pass size: the page slots it decodes
 at once (:func:`pass_slots`).  :func:`decode_pages` exposes that batched
 decode alone, so it can be held bit for bit against the decode kernel.
 
+With ``window=W > 0`` the page slots are a sliding window's ring (a layer
+of a window/full hybrid, :class:`~repro_torch.serving.kv_cache.KVSpec`'s
+``window``): page ``p`` lives in slot ``p % S``, and the state covers the
+full pages' tokens at positions ``[pos - W + 1, (pos // pt) * pt)`` only
+(:func:`ring_bounds`).  The card runs the kernel's ring instantiation
+(``attn_kernel<., ., true>``), which the full-attention cells never launch.
+
 Every constant a call needs is made once on the card and reused: the
 padded table and the kernels' meta come from the memo of
 :func:`~repro_torch.kernels.gbdi_encode.prepare_table`, which kernels A and
@@ -207,11 +214,33 @@ def merge_softmax(
     return acc, m, l
 
 
+def ring_bounds(S: int, pos: int, pt: int, window: int) -> tuple[int, int, int]:
+    """``(n_valid, cur, lo)`` of a call over ``S`` page slots at ``pos``:
+    the slots read, ``[0, n_valid)``; the current page, ``cur = pos // pt``,
+    whose tokens the raw tail holds; and the first position that counts.
+
+    Full attention (``window`` 0): slot ``s`` holds page ``s``, ``lo`` is 0.
+    A window of ``W`` tokens: the slots are a ring, page ``p`` in slot
+    ``p % S``, and slot ``s < min(S, cur)`` holds page ``cur - 1 - ((cur - 1
+    - s) mod S)``; ``lo = max(0, pos - W + 1)``.  A flush of page ``c`` into
+    slot ``c % S`` overwrites page ``c - S``, whose last position ``(c - S +
+    1) * pt - 1`` lies before that flush's ``lo = (c + 1) * pt - W`` when
+    ``S * pt >= W``: so a ring of ``ceil(W / pt)`` slots loses no page the
+    window still reaches.  A smaller ring is refused once it would wrap."""
+    cur = int(pos) // pt
+    if not window:
+        return max(0, min(S, cur)), cur, 0
+    if S * pt < window and cur >= S:
+        raise ValueError(f"a ring of {S} page slots of {pt} tokens cannot hold a window of "
+                         f"{window} tokens past position {S * pt - 1}")
+    return min(S, cur), cur, max(0, int(pos) - window + 1)
+
+
 def paged_attention_decode_plain(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
     table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
-    chunk_slots: int = PLAIN_CHUNK_SLOTS,
+    chunk_slots: int = PLAIN_CHUNK_SLOTS, window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version, on whatever device the pages lie.
 
@@ -220,13 +249,16 @@ def paged_attention_decode_plain(
     ``<= -1e29 -> 0`` guard and the sums of the reference, and merges the
     chunks with :func:`merge_softmax`.  Chunks past ``pos // pt`` hold no
     valid token and are not decoded (merging them would change nothing).
+    ``window``: the slots are a ring, each token masked by its page's
+    position (:func:`ring_bounds`), as the kernel's ring instantiation.
     """
     pt = page_tokens(cfg, n_kv, hd)
     B, S = pages_k["ptrs"].shape[:2]
     dev = q.device
     qf = q.reshape(B, n_kv, groups, hd).float()
     scale = inv_sqrt(hd, dev)
-    limit = (int(pos) // pt) * pt
+    n_valid, cur, lo = ring_bounds(S, pos, pt, window)
+    limit = cur * pt
     acc = torch.zeros(B, n_kv, groups, hd, dtype=torch.float32, device=dev)
     m = torch.full((B, n_kv, groups), MASKED, dtype=torch.float32, device=dev)
     l = torch.zeros(B, n_kv, groups, dtype=torch.float32, device=dev)
@@ -236,12 +268,18 @@ def paged_attention_decode_plain(
         blob = {k: v[:, s0:s1].reshape((B * (s1 - s0),) + v.shape[2:]) for k, v in pages.items()}
         return words_to_bf16(fr_decode(blob, bt, cfg)).float().reshape(B, (s1 - s0) * pt, n_kv, hd)
 
-    for s0 in range(0, min(S, limit // pt), chunk_slots):
+    for s0 in range(0, n_valid, chunk_slots):
         s1 = min(S, s0 + chunk_slots)
         K, V = decode(pages_k, s0, s1), decode(pages_v, s0, s1)
         logits = torch.einsum("bkgh,btkh->bkgt", qf, K) * scale
-        tok = torch.arange(s0 * pt, s1 * pt, device=dev)
-        logits = torch.where((tok < limit)[None, None, None, :], logits, MASKED)
+        if window:      # each slot's page, by the ring; slots past n_valid fall before lo
+            slot = torch.arange(s0, s1, device=dev)
+            page = cur - 1 - torch.remainder(cur - 1 - slot, S)
+            tok = (page[:, None] * pt + torch.arange(pt, device=dev)).reshape(-1)
+            live = (tok < limit) & (tok >= lo)
+        else:
+            live = torch.arange(s0 * pt, s1 * pt, device=dev) < limit
+        logits = torch.where(live[None, None, None, :], logits, MASKED)
         mc = logits.max(dim=-1).values
         p = torch.where(logits <= MASKED_GUARD, 0.0, torch.exp(logits - mc[..., None]))
         accc = torch.einsum("bkgt,btkh->bkgh", p, V)
@@ -287,27 +325,37 @@ def _splits(n_valid: int, batch: int, *, sms: int, per_sm: int, pass_n: int,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gbdi_paged_attn")
-    lib.gbdi_paged_attn_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.gbdi_paged_attn_blocks_per_sm.restype = ctypes.c_int
+    for fn in (lib.gbdi_paged_attn_blocks_per_sm, lib.gbdi_paged_attn_ring_blocks_per_sm):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    launch = lib.gbdi_paged_attn_launch.argtypes
+    lib.gbdi_paged_attn_ring_launch.argtypes = [*launch[:2], ctypes.POINTER(ctypes.c_int), launch[2]]
+    lib.gbdi_paged_attn_ring_launch.restype = ctypes.c_int
     lib.gbdi_paged_attn_decode_launch.argtypes = lib.gbdi_paged_attn_launch.argtypes
     lib.gbdi_paged_attn_decode_launch.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=64)
-def _blocks_per_sm(cfg: FRConfig, n_kv: int, hd: int, groups: int, device: int) -> int:
-    """Attention blocks one SM holds at once (the runtime's occupancy count)."""
+def _blocks_per_sm(cfg: FRConfig, n_kv: int, hd: int, groups: int, device: int,
+                   ring: bool = False) -> int:
+    """Attention blocks one SM holds at once (the runtime's occupancy count),
+    of the full or the ring instantiation."""
     ip = attn_iparams(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    lib = _lib()
+    fn = lib.gbdi_paged_attn_ring_blocks_per_sm if ring else lib.gbdi_paged_attn_blocks_per_sm
     with torch.cuda.device(device):
-        n = _lib().gbdi_paged_attn_blocks_per_sm(_build.int_array(ip))
+        n = fn(_build.int_array(ip))
     if n <= 0:
         raise RuntimeError(f"gbdi_paged_attn occupancy query failed (code {n})")
     return n
 
 
 def _launch_plan(cfg: FRConfig, B: int, S: int, pos: int, dev: torch.device, *, n_kv: int,
-                 hd: int, groups: int, n_valid: int | None = None) -> list[int]:
-    """The kernel's iparams for a call on ``dev``: pass size, splits, run."""
+                 hd: int, groups: int, n_valid: int | None = None,
+                 ring: bool = False) -> list[int]:
+    """The kernel's iparams for a call on ``dev``: pass size, splits, run,
+    planned over ``n_valid`` slots (default: the full pages before ``pos``)."""
     pass_n = check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
     pt = page_tokens(cfg, n_kv, hd)
     if n_valid is None:
@@ -315,7 +363,7 @@ def _launch_plan(cfg: FRConfig, B: int, S: int, pos: int, dev: torch.device, *, 
     chunks = -(-(n_kv * groups) // chunk_rows(n_kv * groups, hd)) * channel_chunks(hd)
     splits, run = _splits(
         n_valid, B, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
-        per_sm=_blocks_per_sm(cfg, n_kv, hd, groups, dev.index or 0), pass_n=pass_n,
+        per_sm=_blocks_per_sm(cfg, n_kv, hd, groups, dev.index or 0, ring), pass_n=pass_n,
         chunks=chunks)
     return attn_iparams(cfg, n_kv=n_kv, hd=hd, groups=groups, batch=B, n_slots=S,
                         n_valid=n_valid, splits=splits, run=run, pass_n=pass_n)
@@ -353,28 +401,29 @@ def paged_attention_decode(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
     table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int,
-    groups: int,
+    groups: int, window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Un-normalised ``(acc, m, l)`` over the full pages before ``pos``: the
-    CUDA kernel for tensors on a CUDA device, the plain version on the CPU."""
+    """Un-normalised ``(acc, m, l)`` over the full pages before ``pos`` (with
+    ``window``, those of the ring inside the window): the CUDA kernel for
+    tensors on a CUDA device, the plain version on the CPU."""
     dev = pages_k["ptrs"].device
     if dev.type == "cuda":
         with obs.span("paged_attn"):
             return _attend_cuda(q, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
-                                groups=groups)
+                                groups=groups, window=window)
     check_kernel_geometry(cfg, hd)
     check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
     if dev.type != "cpu":
         raise ValueError(f"paged_attention_decode runs on cuda (kernel) or cpu (plain), not {dev}")
     return paged_attention_decode_plain(q, pages_k, pages_v, table, pos, cfg,
-                                        n_kv=n_kv, hd=hd, groups=groups)
+                                        n_kv=n_kv, hd=hd, groups=groups, window=window)
 
 
 def _attend_cuda(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
     table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int,
-    groups: int,
+    groups: int, window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     check_kernel_geometry(cfg, hd)
     check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
@@ -384,7 +433,9 @@ def _attend_cuda(
     if q.device != dev:
         raise ValueError(f"q lies on {q.device}, the pages on {dev}")
     q = q.float().contiguous()
-    ip = _launch_plan(cfg, B, S, pos, dev, n_kv=n_kv, hd=hd, groups=groups)
+    n_valid, cur, lo = ring_bounds(S, pos, page_tokens(cfg, n_kv, hd), window)
+    ip = _launch_plan(cfg, B, S, pos, dev, n_kv=n_kv, hd=hd, groups=groups, n_valid=n_valid,
+                      ring=bool(window))
     splits, kg = ip[-7], n_kv * groups
     keep, table_ptrs = _table_ptrs(table, cfg, dev)
 
@@ -398,9 +449,13 @@ def _attend_cuda(
         part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
     ])
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().gbdi_paged_attn_launch(ptrs, _build.int_array(ip),
-                                           torch.cuda.current_stream(dev).cuda_stream)
+        if window:
+            rc = _lib().gbdi_paged_attn_ring_launch(ptrs, _build.int_array(ip),
+                                                    _build.int_array([cur, lo]), stream)
+        else:
+            rc = _lib().gbdi_paged_attn_launch(ptrs, _build.int_array(ip), stream)
     if rc != 0:
         raise RuntimeError(f"gbdi_paged_attn launch failed (code {rc})")
     if B:
@@ -452,5 +507,5 @@ def decode_pages(
 __all__ = [
     "MASKED", "attn_iparams", "channel_chunks", "check_kernel_geometry", "check_smem", "chunk_rows",
     "decode_pages", "inv_sqrt", "merge_softmax", "page_tokens", "pass_slots",
-    "paged_attention_decode", "paged_attention_decode_plain", "smem_bytes",
+    "paged_attention_decode", "paged_attention_decode_plain", "ring_bounds", "smem_bytes",
 ]

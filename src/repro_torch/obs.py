@@ -42,6 +42,7 @@ COUNTERS = (
     "table_prep.miss",    # and misses
     "words.encoded",      # words the KV cache encoded into page slots
     "words.dropped",      # outlier words those encodes dropped (while recording)
+    "pages.evicted",      # window-layer flushes into a ring slot that held a page
 )
 #: spans the ring holds
 SPAN_CAP = 1 << 16

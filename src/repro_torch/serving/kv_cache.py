@@ -16,6 +16,15 @@ Layout per attention layer (structure of arrays, static shapes):
 ``n_slots = n_pages * pages_per_row``; a row wider than a page
 (``pages_per_row > 1``) fills several slots per token.  A page holds
 ``page_tokens = page_words // (Kv*hd)`` consecutive tokens' K (or V).
+
+A sliding-window layer (``KVSpec.window = W``; a query at ``pos`` attends
+over ``[pos - W + 1, pos]``, as ``models/layers.py``'s mask) keeps its pages
+in a ring of ``ceil(W / page_tokens)`` slots: page ``p`` is flushed into
+slot ``p % n_pages``, over a page the window no longer reaches
+(``gbdi_paged_attn.ring_bounds`` shows why), and counted in
+``pages.evicted`` when that slot held one.  Window and full layers of one
+model are caches side by side, each with its own spec.
+
 Appends go to the raw tail; when it fills, it is compressed into the next
 page slot with the encode kernel, and with ``resident_decode`` that blob
 is decoded once into the resident region with the decode kernel.
@@ -78,13 +87,26 @@ class KVSpec:
     once, from the blob that landed in its slot, and reused by every later
     read, at the memory price of the decoded copy (counted in
     :meth:`compressed_bytes`).  Invariant: ``k_dec``/``v_dec`` are always
-    bit-identical to a from-scratch :func:`_decompress_all` of the slots."""
+    bit-identical to a from-scratch :func:`_decompress_all` of the slots.
+
+    ``window`` > 0 makes the layer a sliding window of that many tokens
+    (0: full attention): its page slots are a ring of ``ceil(window /
+    page_tokens)`` (no more than ``max_len`` needs), and positions run up to
+    ``max_len`` all the same.  A window layer has no resident region."""
 
     n_kv: int
     head_dim: int
     max_len: int
     fr: FRConfig = KV_FR
     resident_decode: bool = False
+    window: int = 0
+
+    def __post_init__(self) -> None:
+        if self.window < 0:
+            raise ValueError(f"window must be 0 (full attention) or positive, not {self.window}")
+        if self.window and self.resident_decode:
+            raise ValueError("resident_decode serves full-attention layers only; "
+                             "a window layer attends through its ring of pages")
 
     @property
     def row_words(self) -> int:
@@ -102,8 +124,15 @@ class KVSpec:
         return max(1, self.row_words // self.fr.page_words)
 
     @property
+    def n_positions(self) -> int:
+        """Positions the cache takes: ``max_len`` up to a whole page."""
+        return math.ceil(self.max_len / self.page_tokens) * self.page_tokens
+
+    @property
     def n_pages(self) -> int:
-        return math.ceil(self.max_len / self.page_tokens)
+        """Page slots a row keeps a side: every page, or a window's ring."""
+        full = math.ceil(self.max_len / self.page_tokens)
+        return min(full, math.ceil(self.window / self.page_tokens)) if self.window else full
 
     @property
     def word_bytes(self) -> int:
@@ -121,7 +150,8 @@ class KVSpec:
         return pages + tail
 
     def raw_bytes(self, batch: int) -> int:
-        return 2 * batch * self.max_len * self.row_words * self.word_bytes  # k and v
+        tokens = min(self.max_len, self.window) if self.window else self.max_len
+        return 2 * batch * tokens * self.row_words * self.word_bytes  # k and v
 
     def compressed_bytes_upto(self, batch: int, n_tokens: int) -> int:
         """Bytes that hold just the first ``n_tokens`` of a sequence: the
@@ -139,6 +169,8 @@ class KVSpec:
     def raw_bytes_upto(self, batch: int, n_tokens: int) -> int:
         """Raw-cache analogue of :meth:`compressed_bytes_upto`."""
         n = min(self.max_len, max(0, n_tokens))
+        if self.window:
+            n = min(n, self.window)
         return 2 * batch * n * self.row_words * self.word_bytes
 
 
@@ -199,22 +231,36 @@ def _decompress_all(spec: KVSpec, pages: dict[str, torch.Tensor], table: TableLi
 
 
 def _store_pages(spec: KVSpec, cache: Cache, side: str, first_page: int, rows: torch.Tensor) -> None:
-    """Encode ``rows`` (whole pages from ``first_page`` on) into their slots and,
-    with a resident region, decode the blob just written into it (NOT the
-    raw rows: dropped outliers must round-trip as a from-scratch decode)."""
+    """Encode ``rows`` (whole pages from ``first_page`` on, at most
+    ``n_pages`` of them) into their slots, page ``p`` into slot ``p %
+    n_pages`` (a window's ring wraps; a full layer's pages fit) and, with a
+    resident region, decode the blob just written into it (NOT the raw rows:
+    dropped outliers must round-trip as a from-scratch decode)."""
     blob = _compress_rows(spec, rows, cache["table"])
-    s0 = first_page * spec.pages_per_row
+    ppr, first = spec.pages_per_row, first_page % spec.n_pages
+    head = min(rows.shape[1] // spec.page_tokens, spec.n_pages - first) * ppr
     for key, val in blob.items():
-        cache[f"{side}_pages"][key][:, s0:s0 + val.shape[1]] = val
+        pages = cache[f"{side}_pages"][key]
+        pages[:, first * ppr:first * ppr + head] = val[:, :head]
+        if val.shape[1] > head:                     # past the ring's end, from slot 0
+            pages[:, :val.shape[1] - head] = val[:, head:]
     if f"{side}_dec" in cache:
         t0 = first_page * spec.page_tokens
         cache[f"{side}_dec"][:, t0:t0 + rows.shape[1]] = _decompress_all(spec, blob, cache["table"])
 
 
 def _check_positions(spec: KVSpec, start: int, end: int) -> None:
-    if not 0 <= start <= end <= spec.n_pages * spec.page_tokens:
+    if not 0 <= start <= end <= spec.n_positions:
         raise ValueError(f"positions [{start}, {end}) outside the cache's "
-                         f"{spec.n_pages * spec.page_tokens} token slots")
+                         f"{spec.n_positions} token slots")
+
+
+def _count_evicted(spec: KVSpec, first: int, last: int) -> None:
+    """Count the flushes of pages ``[first, last)`` into ring slots that
+    already held a page (a page past the ring's first lap): one a flush,
+    whatever the batch."""
+    if spec.window:
+        obs.count("pages.evicted", max(0, last - max(first, spec.n_pages)))
 
 
 def append(spec: KVSpec, cache: Cache, k: torch.Tensor, v: torch.Tensor, pos: int) -> Cache:
@@ -230,6 +276,7 @@ def append(spec: KVSpec, cache: Cache, k: torch.Tensor, v: torch.Tensor, pos: in
             with obs.span("kv_cache.flush"):
                 for side in ("k", "v"):
                     _store_pages(spec, cache, side, pos // pt, cache[f"{side}_tail"])
+            _count_evicted(spec, pos // pt, pos // pt + 1)
     return cache
 
 
@@ -242,7 +289,9 @@ def extend(spec: KVSpec, cache: Cache, ks: torch.Tensor, vs: torch.Tensor, start
     before ``start`` takes its first tokens from the tail ring.  The ring
     ends as the appends leave it: slot ``s`` holds the newest token with
     position ``p < start + T`` and ``p % page_tokens == s``, rows of earlier
-    pages included.  In place.
+    pages included.  A window layer encodes only the pages its ring keeps,
+    the last ``n_pages`` of those completed: the appends would have
+    overwritten the others.  In place.
     """
     T = ks.shape[1]
     end = start + T
@@ -251,31 +300,45 @@ def extend(spec: KVSpec, cache: Cache, ks: torch.Tensor, vs: torch.Tensor, start
         return cache
     pt = spec.page_tokens
     first, last = start // pt, end // pt           # pages [first, last) complete
+    keep = max(first, last - spec.n_pages)         # the first page the ring keeps
     for side, xs in (("k", ks), ("v", vs)):
         tail = cache[f"{side}_tail"]
-        if last > first:
+        if last > keep == first:
             head = tail[:, :start - first * pt]
             rows = torch.cat([head, xs[:, :last * pt - start].to(torch.bfloat16)], dim=1)
             _store_pages(spec, cache, side, first, rows)
+        elif last > keep:
+            _store_pages(spec, cache, side, keep,
+                         xs[:, keep * pt - start:last * pt - start].to(torch.bfloat16))
         n = min(T, pt)
         ring = torch.arange(end - n, end, device=tail.device) % pt
         tail[:, ring] = xs[:, T - n:].to(torch.bfloat16)
+    _count_evicted(spec, first, last)
     return cache
 
 
 def read_full(spec: KVSpec, cache: Cache, pos: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (K, V, valid) covering [0, pos]: the decoded pages (or a copy of the
-    resident region) with the raw tail overlaid on the current page."""
+    """-> (K, V, valid) by position, ``n_positions`` of them: the decoded pages
+    (or a copy of the resident region) with the raw tail overlaid on the
+    current page; ``valid`` marks [0, pos], or a window's [pos - W + 1, pos].
+    A window layer's ring is laid out by position: page ``p`` from slot
+    ``p % n_pages``, which holds it wherever ``valid`` reaches."""
     if "k_dec" in cache:
         K, V = cache["k_dec"].clone(), cache["v_dec"].clone()
     else:
         K = _decompress_all(spec, cache["k_pages"], cache["table"])
         V = _decompress_all(spec, cache["v_pages"], cache["table"])
     pt = spec.page_tokens
+    t = torch.arange(spec.n_positions, device=K.device)
+    if spec.window:
+        src = (t // pt) % spec.n_pages * pt + t % pt
+        K, V = K[:, src], V[:, src]
     t0 = (pos // pt) * pt
     K[:, t0:t0 + pt] = cache["k_tail"]
     V[:, t0:t0 + pt] = cache["v_tail"]
-    valid = torch.arange(K.shape[1], device=K.device) <= pos
+    valid = t <= pos
+    if spec.window:
+        valid &= t > pos - spec.window
     return K, V, valid
 
 
@@ -292,6 +355,9 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
     picks the resident region when the cache has one, else ``'paged'``.
     """
     with obs.span("kv_cache.attention_decode"):
+        if spec.window:
+            with obs.span("kv_cache.window"):
+                return _attention_decode(spec, q, cache, pos, backend)
         return _attention_decode(spec, q, cache, pos, backend)
 
 
@@ -319,12 +385,15 @@ def _attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
     qg = q.reshape(B, Kv, G, hd).float()
     acc, m, l = paged_attention_decode(
         qg, cache["k_pages"], cache["v_pages"], cache["table"], pos, spec.fr,
-        n_kv=Kv, hd=hd, groups=G)
+        n_kv=Kv, hd=hd, groups=G, window=spec.window)
     # the raw tail (the current partial page), then the softmax merge
     with obs.span("kv_cache.tail_merge"):
         pt = spec.page_tokens
         Kt, Vt = cache["k_tail"].float(), cache["v_tail"].float()
-        tail_valid = (pos // pt) * pt + torch.arange(pt, device=qg.device) <= pos
+        tok = (pos // pt) * pt + torch.arange(pt, device=qg.device)
+        tail_valid = tok <= pos
+        if spec.window:
+            tail_valid &= tok > pos - spec.window
         lg = torch.einsum("bkgh,btkh->bkgt", qg, Kt) * inv_sqrt(hd, qg.device)
         lg = torch.where(tail_valid, lg, MASKED)
         m2 = lg.max(dim=-1).values

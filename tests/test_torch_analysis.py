@@ -897,7 +897,7 @@ def test_smem_report_pins_the_known_figures(report):
     mixtral = by["gbdi_paged_attn", "KV_FR x mixtral-8x22b (Kv 8, hd 128, G 6)"]
     assert mixtral.pass_slots == 8
     assert by["gbdi_paged_attn", "KV_FR x hd-512 head (Kv 1, hd 512, G 8)"].entry == \
-        "attn_kernelILi8ELb1EE"
+        "attn_kernelILi8ELb1ELb0EE"
     assert by["gbdi_encode", "16-bit default"].entry == "encode_kernelILi8ELi1EE"
 
 

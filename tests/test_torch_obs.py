@@ -2,7 +2,8 @@
 path, recorded only under ``obs.recording()`` or a torch profiler session;
 the ring of the newest spans; the counters that moved into it (launches,
 the table memo's hits and misses, blocking uploads, the words a flush
-encoded and dropped)."""
+encoded and dropped, a window layer's evicted pages); a window layer's
+span."""
 from __future__ import annotations
 
 import numpy as np
@@ -182,6 +183,58 @@ def test_words_dropped_counts_the_flushes_dropped_outliers():
     assert want > 0
     assert counters["words.dropped"] == want
     assert counters["words.encoded"] == pages * SPEC.fr.page_words
+
+
+WINDOW_SPEC = tkv.KVSpec(KV, HD, max_len=96, window=2 * PT)    # a ring of 2 slots
+
+
+def test_window_span_nests_under_attention_decode():
+    """A window layer's decode opens ``kv_cache.window`` inside
+    ``kv_cache.attention_decode``, around the tail merge; a full layer's
+    does not, and the existing spans keep their places."""
+    cache = tkv.init_compressed(WINDOW_SPEC, B, _cache()["table"], device="cpu")
+    ks, vs = _tokens(PT, 1), _tokens(PT, 2)
+    with obs.recording():
+        for s in range(PT):
+            tkv.append(WINDOW_SPEC, cache, ks[s], vs[s], s)
+            tkv.attention_decode(WINDOW_SPEC, _q(), cache, s)
+    spans = obs.snapshot()["spans"]
+    names = [sp[0] for sp in spans]
+    assert names.count("kv_cache.window") == names.count("kv_cache.attention_decode") == PT
+    for i, (name, a, b, parent) in enumerate(spans):
+        if name == "kv_cache.window":
+            assert spans[parent][0] == "kv_cache.attention_decode"
+            assert spans[parent][1] <= a and b <= spans[parent][2]
+        if name == "kv_cache.tail_merge":
+            assert spans[parent][0] == "kv_cache.window"
+    obs.reset()
+    with obs.recording():
+        _steps(_cache(), ks, vs, _q(), 0)
+    _check_decode_spans(obs.snapshot())
+
+
+def test_pages_evicted_counts_flushes_into_a_held_ring_slot():
+    """Flushes of the ring's first lap count nothing; each later one counts
+    one, whatever the batch, by ``append`` and by ``extend`` alike, and
+    while not recording too (an int count); full layers count none."""
+    table = _cache()["table"]
+    n = 5 * PT                                   # five pages: three past a ring of two
+    ks, vs = _tokens(n, 3), _tokens(n, 4)
+    cache = tkv.init_compressed(WINDOW_SPEC, B, table, device="cpu")
+    for s in range(n):
+        tkv.append(WINDOW_SPEC, cache, ks[s], vs[s], s)
+        if s == 2 * PT - 1:
+            assert obs.snapshot(spans=False)["counters"]["pages.evicted"] == 0
+    assert obs.snapshot(spans=False)["counters"]["pages.evicted"] == 3
+    obs.reset()
+    cache = tkv.init_compressed(WINDOW_SPEC, B, table, device="cpu")
+    rows = [x[:, :, 0].transpose(0, 1) for x in (ks, vs)]           # (B, n, Kv, hd)
+    tkv.extend(WINDOW_SPEC, cache, rows[0][:, :PT + 3], rows[1][:, :PT + 3], 0)
+    tkv.extend(WINDOW_SPEC, cache, rows[0][:, PT + 3:], rows[1][:, PT + 3:], PT + 3)
+    assert obs.snapshot(spans=False)["counters"]["pages.evicted"] == 3
+    obs.reset()
+    _steps(_cache(), ks[:2 * PT], vs[:2 * PT], _q(), 0)
+    assert obs.snapshot(spans=False)["counters"]["pages.evicted"] == 0
 
 
 def test_table_cache_info_reads_the_counters():

@@ -509,6 +509,38 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
         assert_state_close([t.cpu() for t in got], [t.cpu() for t in want])
 
 
+#: (n_kv, hd, groups): one chip's share of mixtral-8x22b and of
+#: Trinity-Large-Preview under 8-way tensor parallelism, and musicgen-large
+RING_GEOMS = {"g6-hd128": (1, 128, 6), "g1-hd64": (32, 64, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", list(RING_GEOMS))
+@pytest.mark.parametrize("whole_pages", [True, False])
+def test_ring_kernel_matches_plain_on_card(cuda_device, geom, whole_pages):
+    """The ring instantiation against the plain version's ring mode at a
+    window of whole pages and one of not, before the ring fills, at a flush
+    step (its reused slot masked) and after wraps, at the trinity cell's
+    page of 16 tokens (G 6) and at one token a page (G 1)."""
+    cfg = tfr.FRConfig(**KV_FR)
+    n_kv, hd, groups = RING_GEOMS[geom]
+    pt = cfg.page_words // (n_kv * hd)
+    window = 40 * pt - (0 if whole_pages else max(1, pt // 2))
+    R = -(-window // pt)
+    pk, pv, table, _ = _card_pages(cfg, n_kv, hd, R, cuda_device, seed=R + pt)
+    q = torch.randn(B, n_kv, groups, hd, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1)) * 4
+    for pos in (10 * pt + pt // 2, 85 * pt + pt - 1, 130 * pt + 3 * pt // 4, 3 * R * pt - 1):
+        n0 = _launches("attn")
+        got = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, n_kv=n_kv, hd=hd,
+                                          groups=groups, window=window)
+        torch.cuda.synchronize()
+        assert _launches("attn") == n0 + 1
+        want = t_pa.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, n_kv=n_kv,
+                                                 hd=hd, groups=groups, window=window)
+        assert_state_close([t.cpu() for t in got], [t.cpu() for t in want])
+
+
 @pytest.mark.cuda
 def test_smem_formula_matches_kernel_source(cuda_device):
     """The wrapper's shared-memory formula equals the kernel source's at every

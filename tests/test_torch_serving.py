@@ -451,8 +451,14 @@ def test_session_needs_a_card_or_cpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 #: (n_kv, groups, head_dim): one chip's share of mixtral-8x22b under 8-way
-#: tensor parallelism, and musicgen-large whole
-CARD_GEOMS = {"mixtral": (1, 6, 128), "musicgen": (32, 1, 64)}
+#: tensor parallelism, and musicgen-large whole; a window layer at
+#: Trinity-Large-Preview's share (mixtral's geometry)
+CARD_GEOMS = {"mixtral": (1, 6, 128), "musicgen": (32, 1, 64), "trinity-window": (1, 6, 128)}
+#: the window of each window layer (tokens): 49, a ring of 4 slots of 16
+#: tokens that the prefix wraps; the slot the flush step reuses lies wholly
+#: before the plain step's window, so that step, run again after the flush,
+#: reads what it read before
+CARD_WINDOWS = {"trinity-window": 49}
 #: counters a checked step reports, as differences
 STEP_COUNTERS = ("uploads", "launches.attn", "launches.encode", "table_prep.miss")
 
@@ -464,7 +470,9 @@ def test_warm_paged_step_makes_no_blocking_copy_on_card(name):
     plain and one flush step (the first a cold memo miss): a warm plain step
     and a warm flush step upload nothing, miss no prepared table and make no
     synchronising call, and the plain step gives the cold step's outputs bit
-    for bit.  musicgen's page holds one token, so each of its steps flushes."""
+    for bit.  musicgen's page holds one token, so each of its steps flushes.
+    A window layer's steps run the ring instantiation and its flush reuses a
+    ring slot."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -472,7 +480,7 @@ def test_warm_paged_step_makes_no_blocking_copy_on_card(name):
     pt = tkv.KVSpec(n_kv, hd, max_len=1).page_tokens
     ctx = 8 * pt
     plain_pos, flush_pos = ctx, ctx + max(pt - 1, 1)
-    spec = tkv.KVSpec(n_kv, hd, max_len=flush_pos + 1)
+    spec = tkv.KVSpec(n_kv, hd, max_len=flush_pos + 1, window=CARD_WINDOWS.get(name, 0))
     gen = torch.Generator(device=dev).manual_seed(0)
     means = 2 * torch.randn(n_kv, hd, generator=gen, device=dev)
 
