@@ -49,7 +49,11 @@ Phases, in order; any failure exits non-zero before the final line:
    at contexts of 4,096 and 32,768; (b) the ring instantiation of the
    paged-attention kernel (a sliding-window layer) at :data:`RING`, against
    its plain version at each position, launches counted, and timed as above
-   beside its plain version and SDPA (:func:`ring_attention`);
+   beside its plain version and SDPA (:func:`ring_attention`).  Phases 5, 7
+   and 7 (b) also hold ``launches.attn_sliced`` to the rule of
+   ``gbdi_paged_attn.token_slices``: a sliced launch where a shape takes more
+   than one token slice (7 (b), the decode cells' G 6), none at the serving
+   shape of 7;
 8. the paper's suite (:func:`paper_suite`): every registered family (the
    twelve dump families, the four model-backed ML families, trained on the
    card, and ``ml_kvcache_bf16``) x {gbdi, bdi, fr} at 1 MiB fitted on the
@@ -216,6 +220,13 @@ def launch_counts(*mods: str) -> dict[str, int]:
     return {m: counters[LAUNCH_COUNTERS[m]] for m in mods}
 
 
+def sliced_launches() -> int:
+    """Kernel C launches counted so far whose attention ran in token slices."""
+    from repro_torch import obs
+
+    return obs.snapshot(spans=False)["counters"]["launches.attn_sliced"]
+
+
 def reset_launches(*mods: str) -> None:
     from repro_torch import obs
 
@@ -343,7 +354,7 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
     def attn_launches() -> int:
         return launch_counts("gbdi_paged_attn")["gbdi_paged_attn"]
 
-    errs, launches = {"out": 0.0, "m": 0.0, "l": 0.0}, 0
+    errs, launches, sliced0 = {"out": 0.0, "m": 0.0, "l": 0.0}, 0, sliced_launches()
     for pos in RING["positions"]:
         n_valid, cur, lo = pa_mod.ring_bounds(R, pos, pt, W)
         before = attn_launches()
@@ -384,6 +395,10 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
     qh = q.reshape(batch, H, 1, hd).to(torch.bfloat16)
     Kr, Vr = (x[:, :T].permute(0, 2, 1, 3).contiguous() for x in (ks, vs))
     lib_ms = median_ms(lambda: sdpa(qh, Kr, Vr, enable_gqa=True))
+    sliced = sliced_launches() - sliced0
+    ts = pa_mod.token_slices(H, hd, pa_mod.pass_slots(cfg, n_kv=n_kv, hd=hd, groups=G) * pt)
+    if sliced != (launches if ts > 1 else 0):
+        raise AssertionError(f"[7b] {sliced} of {launches} launches sliced at {ts} token slices")
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
            "launches": launches, "max_abs_err": errs["out"]}
@@ -392,7 +407,8 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
         f"{TIMING_REPEATS}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} (bytes "
         f"{bytes_ms:.4f} ms = {n_bytes} B / {peak:.3g} B/s; operations {ops_ms:.4f} ms); "
         f"roofline share {row['bound_ms'] / ms:.3f}; plain {plain_ms:.3f} ms; SDPA over {T} raw "
-        f"tokens {lib_ms:.4f} ms; {launches} launches; largest errors {errs} ({card_tag(card)})")
+        f"tokens {lib_ms:.4f} ms; {launches} launches ({sliced} in {ts} token slices); largest "
+        f"errors {errs} ({card_tag(card)})")
     return row
 
 
@@ -2623,8 +2639,14 @@ def main() -> int:
     def check_attn(label, q, pk, pv, table, pos, cfg, n_kv, hd, groups):
         geom = dict(n_kv=n_kv, hd=hd, groups=groups)
         check_pass_decode(label, pk, pv, table, cfg, geom)
+        sliced0 = sliced_launches()
         acc, m, l = pa_mod.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
         sync()
+        pt = pa_mod.page_tokens(cfg, n_kv, hd)
+        ts = pa_mod.token_slices(n_kv * groups, hd, pa_mod.pass_slots(cfg, **geom) * pt)
+        if sliced_launches() - sliced0 != (ts > 1):
+            raise AssertionError(f"{label}: {sliced_launches() - sliced0} sliced launches at "
+                                 f"{ts} token slices")
         pms = event_ms(lambda: box.__setitem__("p", pa_mod.paged_attention_decode_plain(
             q, pk, pv, table, pos, cfg, **geom)))
         pacc, pm, pl = box["p"]
@@ -2637,8 +2659,8 @@ def main() -> int:
         n_valid = min(pk["n_out"].shape[1], pos // (cfg.page_words // (n_kv * hd)))
         log(f"[5] {label}: B={q.shape[0]} Kv={n_kv} hd={hd} G={groups} slots="
             f"{pk['n_out'].shape[1]} pos={pos} ({n_valid} valid slots, {int(live.sum())} live "
-            f"rows): max|acc/l| err {err['out']:.3g}, m rel err {err['m']:.3g}, l rel err "
-            f"{err['l']:.3g}; plain {pms:.3f} ms")
+            f"rows, {ts} token slices): max|acc/l| err {err['out']:.3g}, m rel err "
+            f"{err['m']:.3g}, l rel err {err['l']:.3g}; plain {pms:.3f} ms")
         return pms
 
     box = {}
@@ -2739,8 +2761,13 @@ def main() -> int:
     pt = spec.page_tokens
     n_valid = pos // pt
     S = n_valid * pt
+    sliced0 = sliced_launches()
     pa_ms, pa_min = median_ms(lambda: pa_mod.paged_attention_decode(
         qg, cache["k_pages"], cache["v_pages"], cache["table"], pos, kv16, **geom))
+    serve_ts = pa_mod.token_slices(n_kv * G, hd, pa_mod.pass_slots(kv16, **geom) * pt)
+    if serve_ts != 1 or sliced_launches() != sliced0:
+        raise AssertionError(f"[7] the serving shape ran in {serve_ts} token slices "
+                             f"({sliced_launches() - sliced0} sliced launches)")
     pa_plain_ms = event_ms(lambda: pa_mod.paged_attention_decode_plain(
         qg, cache["k_pages"], cache["v_pages"], cache["table"], pos, kv16, **geom))
     page_bytes = 4 * (kv16.ptr_lanes + kv16.delta_lanes + 2 * kv16.outlier_cap + 1)
@@ -2761,7 +2788,7 @@ def main() -> int:
         f"{pa_bound:.4f} ms by {pa_bound_by} (bytes {bytes_ms:.4f} ms = {pa_bytes} B / "
         f"{peak:.3g} B/s; operations {ops_ms:.4f} ms = {f32_ops:.4g} f32 at {F32_OPS_S:.3g}/s + "
         f"{int_ops:.4g} int at {INT_OPS_S:.3g}/s); roofline share {pa_bound / pa_ms:.3f}; plain "
-        f"{pa_plain_ms:.3f} ms")
+        f"{pa_plain_ms:.3f} ms; one token slice, no sliced launch")
     log(f"[7] library: scaled_dot_product_attention(enable_gqa=True) over the same {S} tokens "
         f"as a raw bf16 cache ({Kr.numel() * 4} B of K+V): {lib_ms:.4f} ms (median, min "
         f"{lib_min:.4f})")

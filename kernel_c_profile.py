@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
 """Where the paged-attention kernel's time goes, on one NVIDIA card.
 
-    python3 kernel_c_profile.py
+    python3 kernel_c_profile.py [--geometry serving|cell] [--csrc DIR]
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
-Beside the kernels it builds three copies of
-``src/repro_torch/kernels/csrc/gbdi_paged_attn.cu``, made at run time under
+It builds four copies of ``gbdi_paged_attn.cu`` (from ``--csrc``, default
+this checkout's ``src/repro_torch/kernels/csrc``), made at run time under
 ``build/repro_torch/profile/``:
 
+* ``kernel``: the source as it is;
 * ``phases``: ``clock64()`` counters at each step of a pass (thread 0 of
   every block, the cycles from one barrier to the next, summed over blocks);
 * ``no_decode``: the pass decode switched off (attention over stale words);
 * ``no_attention``: the attention switched off (decode only).
 
-The last two give wrong results and are only timed.  At the serving shape of
-``chip_smoke.py`` phase 7 (batch 8, 8 KV heads of 128, 16 query groups,
-16,383 full pages of ``KV_FR`` per row) it prints the kernel's time and each
-copy's (CUDA events, median and min of 10, in turns), the time of
+The last two give wrong results and are only timed.  The copies are patched
+at anchor text that the source has kept since its pass loop took its present
+form, so ``--csrc`` may name another checkout's sources and this checkout's
+wrapper launches them.  At the chosen shape it prints the kernel's time and
+each copy's (CUDA events, median and min of 10, in turns), the time of
 ``scaled_dot_product_attention`` over the same tokens as a raw bf16 cache,
-and the cycles per pass of each step.  It imports nothing of the JAX
-package.  Exit code 2: no CUDA device.
+and the cycles per pass of each step.  The shapes: ``serving``, that of
+``chip_smoke.py`` phase 7 (batch 8, 8 KV heads of 128, 16 query groups,
+16,383 full pages of ``KV_FR`` a row); ``cell``, that of the benchmark's
+mixtral and trinity decode cells (batch 32, 1 KV head of 128, 6 query groups,
+2,047 full pages a row); ``musicgen``, its musicgen-large decode cell (batch
+32, 32 KV heads of 64, 1 query group, 2,046 full pages of one token a row).  It imports nothing of the JAX package.  Exit code
+2: no CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -31,8 +39,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TIMING_REPEATS = 10
 SEED = 12
-#: the serving path's attention layer (chip_smoke.py SERVE)
-B, N_KV, HD, GROUPS, MAX_LEN = 8, 8, 128, 16, 32768
+#: (batch, KV heads, head dim, query groups, tokens a row): the serving path's
+#: attention layer (chip_smoke.py SERVE), one chip's share of the benchmark's
+#: mixtral-8x22b and trinity-large-preview decode cells, and its
+#: musicgen-large decode cell (one token a page)
+GEOMETRIES = {"serving": (8, 8, 128, 16, 32768), "cell": (32, 1, 128, 6, 32768),
+              "musicgen": (32, 32, 64, 1, 2048)}
 
 PROF_HEAD = '''
 __shared__ long long prof_cycles[17];
@@ -60,7 +72,7 @@ PASS_LOOP = '''    __syncthreads();
   }
 '''
 PASS_START = "  const size_t row0 = static_cast<size_t>(b) * a.S;\n  const int pass_ints"
-ATTN_TOKENS = "    const int T = n_s * a.pt;\n    for (int t0 = 0; t0 < T; t0 += kTile) {"
+ATTN_TOKENS = "    const int T = n_s * a.pt;\n"
 #: step names in counter order: 1 and 2 in the pass loop, 3.. at the decode's
 #: barriers, 7 after the attention
 STEPS = {1: "stage next pass + wait", 2: "first barrier", 3: "decode: count pass",
@@ -75,6 +87,8 @@ def patched(src: str, name: str) -> str:
             raise RuntimeError(f"{name}: the kernel source changed; cannot patch {old[:40]!r}")
         return text.replace(old, new)
 
+    if name == "kernel":
+        return src
     if name == "no_decode":
         return swap(src, "    decode_pass(a, s, L, cur, n_s);\n    body(s0, n_s);", "    body(s0, n_s);")
     if name == "no_attention":
@@ -107,7 +121,13 @@ def patched(src: str, name: str) -> str:
     return src + PROF_TAIL
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--geometry", choices=sorted(GEOMETRIES), default="serving")
+    ap.add_argument("--csrc", type=Path, default=None,
+                    help="the csrc directory whose gbdi_paged_attn.cu to profile")
+    args = ap.parse_args(argv)
+    B, N_KV, HD, GROUPS, MAX_LEN = GEOMETRIES[args.geometry]
     import torch
 
     if not torch.cuda.is_available():
@@ -125,17 +145,19 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     _build.compile_kernels()
+    csrc = (args.csrc or _build.CSRC).resolve()
     out_dir = _build.BUILD_DIR / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "gbdi_paged_attn.cu").read_text()
+    src = (csrc / "gbdi_paged_attn.cu").read_text()
+    print(f"source: {csrc / 'gbdi_paged_attn.cu'}", flush=True)
     procs = {}
-    for name in ("phases", "no_decode", "no_attention"):
+    for name in ("kernel", "phases", "no_decode", "no_attention"):
         cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
         cu.write_text(patched(src, name))
         procs[name] = (so, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)],
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {"kernel": pa_mod._lib()}
+    libs = {}
     for name, (so, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
@@ -165,7 +187,8 @@ def main() -> int:
     pk, pv = pages(ks), pages(vs)
     q = torch.randn(B, N_KV, GROUPS, HD, generator=gen, device=dev)
     pos = MAX_LEN - 2
-    n_tok = (pos // 2) * 2
+    pt = pa_mod.page_tokens(KV_FR, N_KV, HD)
+    n_tok = (pos // pt) * pt
     qh = q.reshape(B, N_KV * GROUPS, 1, HD).to(torch.bfloat16)
     Kr = ks[:, :n_tok].permute(0, 2, 1, 3).contiguous()
     Vr = vs[:, :n_tok].permute(0, 2, 1, 3).contiguous()
@@ -194,10 +217,13 @@ def main() -> int:
         finally:
             pa_mod._lib = plain_lib
 
+    attend("kernel")   # the occupancy the plan reads is the profiled source's
     ip = pa_mod._launch_plan(KV_FR, B, pk["n_out"].shape[1], pos, dev, **geom)
-    print(f"shape: B={B} Kv={N_KV} G={GROUPS} hd={HD}, {pos // 2} full pages a row; pass size "
-          f"{ip[-1]}, splits {ip[-7]}, run {ip[-6]} slots, "
-          f"{pa_mod._blocks_per_sm(KV_FR, N_KV, HD, GROUPS, 0)} block(s) an SM", flush=True)
+    ts = pa_mod.token_slices(N_KV * GROUPS, HD, ip[-1] * pt)
+    print(f"shape ({args.geometry}): B={B} Kv={N_KV} G={GROUPS} hd={HD}, {pos // pt} full pages "
+          f"of {pt} tokens a row; pass size {ip[-1]}, splits {ip[-7]}, run {ip[-6]} slots, "
+          f"{pa_mod._blocks_per_sm(KV_FR, N_KV, HD, GROUPS, 0)} block(s) an SM, token slices "
+          f"{ts} by this checkout's rule", flush=True)
     for name in ("kernel", "no_decode", "no_attention", "phases",
                  "phases", "no_attention", "no_decode", "kernel"):
         ms, lo = timed(lambda: attend(name))

@@ -45,15 +45,24 @@
 //    words equal the decode kernel's (gbdi_decode.cu) and fr_decode's bit
 //    for bit (decode_pages_kernel exposes them for that check).
 // 2. Attention over the pass's T = N*pt tokens in tiles of 8, with no block
-//    barrier: warp w owns a fixed set of (kv, group) rows for the whole run,
-//    lanes run over channel pairs (one 32-bit load, two bf16 channels), and
-//    each thread keeps its rows' accumulators in registers (32 floats).  Per
-//    tile and kv head a warp loads the 8 K rows into registers once; each
-//    row's 8 dot products are reduced across lanes by a splitting butterfly
-//    (9 shuffles for 8 sums), two rows at a time; the online softmax of a
-//    row runs across lanes (each lane one token) and leaves p and alpha in
-//    shared memory; then the 8 V rows come into registers and acc = acc *
-//    alpha + p.V runs in registers.  q stays in shared memory.
+//    barrier.  The 16 warps form ts token slices of 16 / ts warps; slice j
+//    takes the pass's tiles j, j + ts, j + 2 ts, ..., and within a slice
+//    warp w owns a fixed set of (kv, group) rows for the whole run.  ts is
+//    the largest power of two up to 16 that leaves a slice a tile a pass and
+//    each warp at most rows_per_warp rows (token_slices): where a chunk has
+//    few rows (6 at G 6 on one KV head), the warps that would own none
+//    attend over other tiles instead of idling.  Lanes run over channel
+//    pairs (one 32-bit load, two bf16 channels), and each thread keeps its
+//    rows' accumulators in registers (32 floats).  Per tile and kv head a
+//    warp loads the 8 K rows into registers once; each row's 8 dot products
+//    are reduced across lanes by a splitting butterfly (9 shuffles for 8
+//    sums), two rows at a time; the online softmax of a row runs across
+//    lanes (each lane one token) and leaves p and alpha in shared memory,
+//    each slice its own (m, l, alpha, p); then the 8 V rows come into
+//    registers and acc = acc * alpha + p.V runs in registers.  q stays in
+//    shared memory.  After the last pass the slices' (acc, m, l) are folded
+//    by the merge_softmax identity in shared memory laid over the decoded
+//    pass, which is dead by then.
 //
 // Ring mode (a sliding-window layer, its own instantiation: attn_kernel<.,
 // ., true>).  The S page slots are a ring: page p lives in slot p % S, and
@@ -78,8 +87,10 @@
 // (0, -1e30, 0).
 //
 // What holds it back now (PERF.md): both steps are latency-bound at 16
-// warps an SM, the decode about 60 % of a pass and the attention the rest;
-// float32 CUDA-core math, where bf16 tensor cores would take q.K and p.V.
+// warps an SM.  With the attention in token slices every warp attends at
+// every geometry, so the pass decode is the larger share of a pass where a
+// chunk has few rows (G 6 on one KV head); the math is float32 CUDA-core,
+// where bf16 tensor cores would take q.K and p.V.
 //
 // Host interface: plain C, loaded with ctypes (no PyTorch headers).
 
@@ -124,6 +135,7 @@ struct AttnArgs {
   short* out_v;
   int B, S, n_valid, splits, run, n_kv, groups, hd, pt, N;
   int ring_cur, ring_lo;  // ring mode only: pos / pt and pos - window + 1
+  int ts;                 // token slices of the attention step: token_slices, by unpack_params
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
@@ -152,6 +164,19 @@ __host__ __device__ inline int chunk_rows(int kg, int hd) {
   return kg < most ? kg : most;
 }
 
+// Token slices of the attention step: the largest power of two ts <= 16 with
+// ts <= the pass's 8-token tiles and ceil(R ts / 16) <= rows_per_warp rows a
+// warp, R the chunk's rows; 1 for a head wider than one channel chunk.  Rows
+// past one chunk fill it (R = 16 rows_per_warp), so they take ts = 1.
+__host__ __device__ inline int token_slices(int kg, int hd, int pass_tokens) {
+  const int cpl = cpl_of(hd);
+  if (cpl == 0) return 1;
+  const int R = chunk_rows(kg, hd), tiles = (pass_tokens + kTile - 1) / kTile;
+  int ts = kAttnWarps;
+  while (ts > 1 && (ts > tiles || (R * ts + kAttnWarps - 1) / kAttnWarps > rows_per_warp(cpl))) ts >>= 1;
+  return ts;
+}
+
 // A staged pass, field-major so that each blob field of the pass's page
 // slots is one contiguous copy: per side (K, then V) the N slots' ptrs,
 // deltas, out_vals, out_idx, n_out and profile, each region starting
@@ -178,43 +203,56 @@ constexpr int kGroupWords = 128;
 
 __host__ __device__ inline int page_groups(int P) { return P / kGroupWords; }
 
+// The bytes of the decoded pass (2N*P bf16), or where ts > 1 of the slices'
+// fold (ts x R x hd floats) laid over it, whichever is larger.
+__host__ __device__ inline size_t words_bytes(int P, int N, int ts, size_t R, int hd) {
+  const size_t words = align16(2 * 2 * static_cast<size_t>(N) * P);
+  const size_t fold = ts > 1 ? align16(4 * ts * R * hd) : 0;
+  return words > fold ? words : fold;
+}
+
 // Dynamic shared memory of one block, in carve order: q (R x hd), m, l,
-// alpha, p (R x kTile), the code table (table_len + 2), class 0's mask of
-// the first 32 codes, the profiles' caps and lane offsets (2 x np x nc),
-// per-page caps and lane offsets, per-class counts of each 128-word group (nc x 2N x
-// groups), the decoded pass (2N*P bf16), and two staged passes.
+// alpha, p (ts x R x kTile: each token slice its own), the code table
+// (table_len + 2), class 0's mask of the first 32 codes, the profiles' caps
+// and lane offsets (2 x np x nc), per-page caps and lane offsets, per-class
+// counts of each 128-word group (nc x 2N x groups), the decoded pass (2N*P
+// bf16) or the slices' fold, and two staged passes.
 __host__ __device__ inline size_t attn_smem_bytes(int P, int ptr_lanes, int delta_lanes,
                                                   int outlier_cap, int table_len, int nc, int np,
-                                                  int kg, int hd, int N) {
+                                                  int kg, int hd, int N, int pt) {
   const size_t R = static_cast<size_t>(chunk_rows(kg, hd));
+  const int ts = token_slices(kg, hd, N * pt);
+  const size_t SR = ts * R;
   const size_t pages = 2 * static_cast<size_t>(N);
   const StageLayout L = stage_layout(N, ptr_lanes, delta_lanes, outlier_cap);
-  return align16(4 * R * hd) + 3 * align16(4 * R) + align16(4 * R * kTile) +
+  return align16(4 * R * hd) + 3 * align16(4 * SR) + align16(4 * SR * kTile) +
          align16(4 * (static_cast<size_t>(table_len) + 2)) + align16(4) +
          align16(8 * static_cast<size_t>(np) * nc) + 2 * align16(4 * pages * kMaxClasses) +
-         align16(4 * nc * pages * page_groups(P)) + align16(2 * pages * P) +
+         align16(4 * nc * pages * page_groups(P)) + words_bytes(P, N, ts, R, hd) +
          4 * 2 * 2 * static_cast<size_t>(L.side);
 }
 
 struct AttnSmem {
   float* q;      // (R, hd): this chunk's query rows
-  float* m;      // (R): running max of each row
-  float* l;      // (R): running sum
-  float* alpha;  // (R): this tile's rescale of each row
-  float* p;      // (R, kTile): this tile's probabilities
+  float* m;      // (ts, R): running max of each row, per token slice
+  float* l;      // (ts, R): running sum
+  float* alpha;  // (ts, R): this tile's rescale of each row
+  float* p;      // (ts, R, kTile): this tile's probabilities
   int* tab;      // per code: (class + 1) << 16 | base & 0xFFFF (class 0: none)
   unsigned* cmask;  // bit `code` set where code < 32 has class 0
   int* meta;     // caps (np x nc) | lane offsets (np x nc) of every profile
   int* pcap;     // (2N, kMaxClasses): each page's class caps (0: no field)
   int* poff;     // (2N, kMaxClasses): each page's class lane offsets
   int* cnt;      // (nc, 2N, groups): flagged words of each class and group
-  unsigned short* words;  // (2N, P): K pages of the pass, then V pages
+  unsigned short* words;  // (2N, P): K pages of the pass, then V pages; after
+                          // the last pass, the slices' acc (ts, R, hd) float
   int* stage;    // two passes of 2N staged blobs
 };
 
 __device__ AttnSmem carve(int* smem, const AttnArgs& a) {
   AttnSmem s;
-  const int R = chunk_rows(a.n_kv * a.groups, a.hd);
+  const int kg = a.n_kv * a.groups, R = chunk_rows(kg, a.hd);
+  const int ts = a.ts, SR = ts * R;
   const int pages = 2 * a.N;
   char* c = reinterpret_cast<char*>(smem);
   auto take = [&c](size_t bytes) {
@@ -223,17 +261,17 @@ __device__ AttnSmem carve(int* smem, const AttnArgs& a) {
     return at;
   };
   s.q = reinterpret_cast<float*>(take(4u * R * a.hd));
-  s.m = reinterpret_cast<float*>(take(4u * R));
-  s.l = reinterpret_cast<float*>(take(4u * R));
-  s.alpha = reinterpret_cast<float*>(take(4u * R));
-  s.p = reinterpret_cast<float*>(take(4u * R * kTile));
+  s.m = reinterpret_cast<float*>(take(4u * SR));
+  s.l = reinterpret_cast<float*>(take(4u * SR));
+  s.alpha = reinterpret_cast<float*>(take(4u * SR));
+  s.p = reinterpret_cast<float*>(take(4u * SR * kTile));
   s.tab = reinterpret_cast<int*>(take(4u * (a.g.table_len + 2)));
   s.cmask = reinterpret_cast<unsigned*>(take(4u));
   s.meta = reinterpret_cast<int*>(take(8u * a.g.np * a.g.nc));
   s.pcap = reinterpret_cast<int*>(take(4u * pages * kMaxClasses));
   s.poff = reinterpret_cast<int*>(take(4u * pages * kMaxClasses));
   s.cnt = reinterpret_cast<int*>(take(4u * a.g.nc * pages * page_groups(a.g.P)));
-  s.words = reinterpret_cast<unsigned short*>(take(2u * pages * a.g.P));
+  s.words = reinterpret_cast<unsigned short*>(take(words_bytes(a.g.P, a.N, ts, R, a.hd)));
   s.stage = reinterpret_cast<int*>(c);
   return s;
 }
@@ -712,11 +750,12 @@ __device__ __forceinline__ void online_softmax(const AttnSmem& s, const float (&
 
 // Scores and the online softmax of NR consecutive rows of one kv head
 // against its K tile: each row's 8 dot products, reduced across lanes by
-// warp_sum8 (every lane: its shuffles are full-warp).
+// warp_sum8 (every lane: its shuffles are full-warp).  Row rl's state is
+// row so + rl of (m, l, alpha, p): so is the token slice's first.
 template <int CPL, int NR, bool RING>
 __device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile)[kTile][CPL],
-                                           int rl, int t0, int T, int hd, float scale, int lane,
-                                           bool live) {
+                                           int rl, int so, int t0, int T, int hd, float scale,
+                                           int lane, bool live) {
   float dot[NR];
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
@@ -724,7 +763,7 @@ __device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile
     tile_dots<CPL>(s.q + (rl + j) * hd, tile, hd, hd, lane, part);
     dot[j] = warp_sum8(part, lane);
   }
-  online_softmax<NR, RING>(s, dot, rl, t0, T, scale, lane, live);
+  online_softmax<NR, RING>(s, dot, so + rl, t0, T, scale, lane, live);
 }
 
 // The same for one row of a head wider than a channel chunk: the K tile of
@@ -733,8 +772,8 @@ __device__ __forceinline__ void score_rows(const AttnSmem& s, const float (&tile
 // the whole head.
 template <bool RING>
 __device__ __forceinline__ void score_row_wide(const AttnSmem& s, const unsigned short* kside,
-                                               int rl, int kv, int t0, int T, int hd, int rowlen,
-                                               float scale, int lane, bool live) {
+                                               int rl, int so, int kv, int t0, int T, int hd,
+                                               int rowlen, float scale, int lane, bool live) {
   float part[kTile] = {};
   for (int c0 = 0; c0 < hd; c0 += kChunkChannels) {
     float tile[kTile][kMaxCpl];
@@ -743,16 +782,17 @@ __device__ __forceinline__ void score_row_wide(const AttnSmem& s, const unsigned
     tile_dots<kMaxCpl>(s.q + rl * hd + c0, tile, n, hd, lane, part);
   }
   const float dot[1] = {warp_sum8(part, lane)};
-  online_softmax<1, RING>(s, dot, rl, t0, T, scale, lane, live);
+  online_softmax<1, RING>(s, dot, so + rl, t0, T, scale, lane, live);
 }
 
-// acc = acc * alpha + p . V for one row against the kv head's V tile.
+// acc = acc * alpha + p . V for one row (state row rs) against the kv
+// head's V tile.
 template <int CPL>
 __device__ __forceinline__ void update_row(const AttnSmem& s, const float (&tile)[kTile][CPL],
-                                           float (&acc)[CPL], int rl) {
-  const float alpha = s.alpha[rl];
-  const float4 p0 = reinterpret_cast<const float4*>(s.p + rl * kTile)[0];
-  const float4 p1 = reinterpret_cast<const float4*>(s.p + rl * kTile)[1];
+                                           float (&acc)[CPL], int rs) {
+  const float alpha = s.alpha[rs];
+  const float4 p0 = reinterpret_cast<const float4*>(s.p + rs * kTile)[0];
+  const float4 p1 = reinterpret_cast<const float4*>(s.p + rs * kTile)[1];
   const float p[kTile] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
@@ -779,18 +819,23 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   const int c0 = cc * kChunkChannels, hc = WIDE ? min(kChunkChannels, hd - c0) : hd;
   const int r0 = rz * chunk_rows(kg, hd);  // first row of this chunk
   const int R = min(chunk_rows(kg, hd), kg - r0);
-  const int rpw = (R + kAttnWarps - 1) / kAttnWarps;
-  const int wr0 = warp * rpw;  // this warp's first row in the chunk
+  // token slice `slice` of ts takes tiles slice, slice + ts, ...; its wps
+  // warps share the chunk's rows, rpw a warp
+  const int ts = a.ts, wps = kAttnWarps / ts;
+  const int slice = warp / wps, ws = warp - slice * wps;
+  const int rpw = (R + wps - 1) / wps;
+  const int wr0 = ws * rpw;  // this warp's first row in the chunk
   const int n_rows = max(0, min(rpw, R - wr0));
   const int kv_first = (r0 + wr0) / a.groups, g_first = r0 + wr0 - kv_first * a.groups;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
 
   const float* qb = a.q + (static_cast<size_t>(b) * kg + r0) * hd;
   for (int o = tid; o < R * hd; o += blockDim.x) s.q[o] = qb[o];
-  for (int j = tid; j < R; j += blockDim.x) {
+  for (int j = tid; j < ts * R; j += blockDim.x) {
     s.m[j] = kMasked;
     s.l[j] = 0.f;
   }
+  const int so = slice * R;  // this slice's first row of (m, l, alpha, p)
   float acc[RPW][CPL];
 #pragma unroll
   for (int i = 0; i < RPW; ++i)
@@ -803,7 +848,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
 
   run_passes(a, s, b, first, last, [&]([[maybe_unused]] int s0, int n_s) {
     const int T = n_s * a.pt;
-    for (int t0 = 0; t0 < T; t0 += kTile) {
+    for (int t0 = slice * kTile; t0 < T; t0 += ts * kTile) {
       bool live = false;
       if constexpr (RING) live = ring_live(a, s0, t0 + tile_token(lane), T);
       // the warp's rows by kv head (one segment where they share one): a K
@@ -813,20 +858,21 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
         const int hi = min(n_rows, lo + a.groups - g0);
         if constexpr (WIDE) {
           for (int i = lo; i < hi; ++i)
-            score_row_wide<RING>(s, kside, wr0 + i, kv, t0, T, hd, rowlen, scale, lane, live);
+            score_row_wide<RING>(s, kside, wr0 + i, so, kv, t0, T, hd, rowlen, scale, lane, live);
         } else {
           load_tile<CPL>(kside, tile, t0, T, kv * hd, rowlen, hd, hd, lane);
           int i = lo;
           if constexpr (CPL < kMaxCpl)  // at 8 channels a lane the tile leaves no room
             for (; i + 1 < hi; i += 2)
-              score_rows<CPL, 2, RING>(s, tile, wr0 + i, t0, T, hd, scale, lane, live);
-          for (; i < hi; ++i) score_rows<CPL, 1, RING>(s, tile, wr0 + i, t0, T, hd, scale, lane, live);
+              score_rows<CPL, 2, RING>(s, tile, wr0 + i, so, t0, T, hd, scale, lane, live);
+          for (; i < hi; ++i)
+            score_rows<CPL, 1, RING>(s, tile, wr0 + i, so, t0, T, hd, scale, lane, live);
         }
         __syncwarp();
         load_tile<CPL>(vside, tile, t0, T, kv * hd + c0, rowlen, hc, hd, lane);
 #pragma unroll
         for (int r = 0; r < RPW; ++r)
-          if (r >= lo && r < hi) update_row<CPL>(s, tile, acc[r], wr0 + r);
+          if (r >= lo && r < hi) update_row<CPL>(s, tile, acc[r], so + wr0 + r);
       }
       __syncwarp();  // the tile's p and alpha are read before the next tile's
     }
@@ -834,10 +880,13 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   __syncthreads();
 
   const size_t part = static_cast<size_t>(b) * a.splits + split;
+  // where ts > 1 the warp's rows go to its slice's fold over the dead words
+  float* fold = reinterpret_cast<float*>(s.words);
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     if (i < n_rows) {
-      float* dst = a.part_acc + (part * kg + r0 + wr0 + i) * hd + c0;
+      float* dst = ts > 1 ? fold + (so + wr0 + i) * hd
+                          : a.part_acc + (part * kg + r0 + wr0 + i) * hd + c0;
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
         const int c = chan<CPL>(lane, k);
@@ -845,11 +894,34 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
       }
     }
   }
-  if (cc == 0)
-    for (int j = tid; j < R; j += blockDim.x) {
-      a.part_m[part * kg + r0 + j] = s.m[j];
-      a.part_l[part * kg + r0 + j] = s.l[j];
-    }
+  if (ts == 1) {
+    if (cc == 0)
+      for (int j = tid; j < R; j += blockDim.x) {
+        a.part_m[part * kg + r0 + j] = s.m[j];
+        a.part_l[part * kg + r0 + j] = s.l[j];
+      }
+    return;
+  }
+  // fold the slices by the merge_softmax identity (ts = 1 where WIDE, so
+  // the block owns every channel); a slice that saw no live token carries
+  // (0, -1e30, 0) and adds nothing
+  __syncthreads();
+  for (int o = tid; o < R * hd; o += blockDim.x) {
+    const int r = o / hd, c = o - r * hd;
+    float mx = kMasked;
+    for (int j = 0; j < ts; ++j) mx = fmaxf(mx, s.m[j * R + r]);
+    float v = 0.f;
+    for (int j = 0; j < ts; ++j) v += fold[(j * R + r) * hd + c] * expf(s.m[j * R + r] - mx);
+    a.part_acc[(part * kg + r0 + r) * hd + c] = v;
+  }
+  for (int r = tid; r < R; r += blockDim.x) {
+    float mx = kMasked;
+    for (int j = 0; j < ts; ++j) mx = fmaxf(mx, s.m[j * R + r]);
+    float l = 0.f;
+    for (int j = 0; j < ts; ++j) l += s.l[j * R + r] * expf(s.m[j * R + r] - mx);
+    a.part_m[part * kg + r0 + r] = mx;
+    a.part_l[part * kg + r0 + r] = l;
+  }
 }
 
 // The batched pass decode alone, for holding it bit for bit against the
@@ -926,6 +998,7 @@ AttnArgs unpack_params(const int* ip) {
   a.hd = x[7];
   a.pt = x[8];
   a.N = x[9];
+  a.ts = token_slices(a.n_kv * a.groups, a.hd, a.N * a.pt);
   return a;
 }
 
@@ -950,7 +1023,8 @@ AttnArgs unpack(const long long* ptr, const int* ip) {
 
 size_t smem_of(const int* ip) {
   const int* x = ip + kPageParams;
-  return attn_smem_bytes(ip[1], ip[8], ip[9], ip[10], ip[4], ip[5], ip[6], x[5] * x[6], x[7], x[9]);
+  return attn_smem_bytes(ip[1], ip[8], ip[9], ip[10], ip[4], ip[5], ip[6], x[5] * x[6], x[7], x[9],
+                         x[8]);
 }
 
 using Kernel = void (*)(AttnArgs);

@@ -15,8 +15,9 @@ its layout, as in the decode kernel).
 
 :func:`paged_attention_decode` launches the kernel for tensors on a CUDA
 device, counts the launch in the counter ``launches.attn`` of
-:mod:`repro_torch.obs` and records its host work as the span
-``paged_attn``; for tensors on the CPU it runs
+:mod:`repro_torch.obs` (and in ``launches.attn_sliced`` where the
+attention step runs in token slices, :func:`token_slices`) and records its
+host work as the span ``paged_attn``; for tensors on the CPU it runs
 :func:`paged_attention_decode_plain`, and for any other device it raises.
 Both paths first check the geometry (16-bit words,
 ``page_words`` holding a whole number of ``Kv * hd`` rows) and the
@@ -105,12 +106,36 @@ def channels_per_lane(hd: int) -> int:
     return c
 
 
+def rows_per_warp(hd: int) -> int:
+    """Rows a warp may own (mirrors ``rows_per_warp``): 32 accumulators a
+    thread over channels-per-lane, but 1 at 8 channels a lane."""
+    cpl = min(channels_per_lane(hd), CHUNK_CHANNELS // 32)
+    return 1 if cpl >= 8 else 32 // cpl
+
+
 def chunk_rows(kg: int, hd: int) -> int:
     """(kv, group) rows one block holds (mirrors ``chunk_rows``): 16 warps of
-    32 / channels-per-lane rows, 1 at 8 channels a lane; more rows go to
-    further row chunks, each decoding the pages again."""
-    cpl = min(channels_per_lane(hd), CHUNK_CHANNELS // 32)
-    return min(kg, ATTN_WARPS * (1 if cpl >= 8 else 32 // cpl))
+    :func:`rows_per_warp` rows; more rows go to further row chunks, each
+    decoding the pages again."""
+    return min(kg, ATTN_WARPS * rows_per_warp(hd))
+
+
+@functools.lru_cache(maxsize=256)
+def token_slices(kg: int, hd: int, pass_tokens: int) -> int:
+    """Token slices of the attention step (mirrors ``token_slices``): the
+    largest power of two ``ts <= 16`` with ``ts`` at most the pass's 8-token
+    tiles and ``ceil(R * ts / 16)`` rows a warp at most what a warp may own,
+    ``R`` the block's rows (:func:`chunk_rows`); 1 for a head wider than one
+    channel chunk.  The 16 warps then form ``ts`` slices of ``16 / ts`` warps,
+    slice ``j`` taking the pass's tiles ``j, j + ts, ...``, and the block folds
+    the slices' states after its last pass."""
+    if hd > CHUNK_CHANNELS:
+        return 1
+    rows, tiles = chunk_rows(kg, hd), -(-pass_tokens // TILE_TOKENS)
+    ts = ATTN_WARPS
+    while ts > 1 and (ts > tiles or -(-rows * ts // ATTN_WARPS) > rows_per_warp(hd)):
+        ts //= 2
+    return ts
 
 
 def channel_chunks(hd: int) -> int:
@@ -127,24 +152,28 @@ def _a16(n: int) -> int:
 def smem_bytes(cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
                n_slots: int | None = None) -> int:
     """Dynamic shared memory of one attention block at ``n_slots`` page slots
-    per pass (default: :func:`pass_slots`), mirroring ``attn_smem_bytes``: q,
-    m, l, alpha and the tile's p for the block's rows; the code table and
-    a class mask; every profile's caps and lane offsets, and each page's;
-    per-class counts of each 128-word group; the decoded pass as bf16; and
-    two staged passes (K and V sides, each field of the pass contiguous)."""
-    page_tokens(cfg, n_kv, hd)
+    per pass (default: :func:`pass_slots`), mirroring ``attn_smem_bytes``: q
+    for the block's rows, and m, l, alpha and the tile's p for them in each
+    token slice; the code table and a class mask; every profile's caps and
+    lane offsets, and each page's; per-class counts of each 128-word group;
+    the decoded pass as bf16, or the slices' float32 fold laid over it where
+    that is larger; and two staged passes (K and V sides, each field of the
+    pass contiguous)."""
+    pt = page_tokens(cfg, n_kv, hd)
     n = pass_slots(cfg, n_kv=n_kv, hd=hd, groups=groups) if n_slots is None else n_slots
     R = chunk_rows(n_kv * groups, hd)
+    ts = token_slices(n_kv * groups, hd, n * pt)
     pages = 2 * n
     groups_per_page = cfg.page_words // GROUP_WORDS
     a4 = lambda x: -(-x // 4) * 4  # noqa: E731
     side = (a4(n * cfg.ptr_lanes) + a4(n * cfg.delta_lanes) + 2 * a4(n * cfg.outlier_cap)
             + 2 * a4(n))
-    return (_a16(4 * R * hd) + 3 * _a16(4 * R) + _a16(4 * R * TILE_TOKENS)
+    fold = _a16(4 * ts * R * hd) if ts > 1 else 0
+    return (_a16(4 * R * hd) + 3 * _a16(4 * ts * R) + _a16(4 * ts * R * TILE_TOKENS)
             + _a16(4 * (k_padded(cfg) + 2)) + 16
             + _a16(8 * cfg.num_profiles * cfg.num_classes) + 2 * _a16(4 * pages * MAX_CLASSES)
             + _a16(4 * cfg.num_classes * pages * groups_per_page)
-            + _a16(2 * pages * cfg.page_words) + 4 * 2 * 2 * side)
+            + max(_a16(2 * pages * cfg.page_words), fold) + 4 * 2 * 2 * side)
 
 
 def pass_slots(cfg: FRConfig, *, n_kv: int, hd: int, groups: int) -> int:
@@ -460,6 +489,8 @@ def _attend_cuda(
         raise RuntimeError(f"gbdi_paged_attn launch failed (code {rc})")
     if B:
         obs.count("launches.attn")
+        if token_slices(kg, hd, ip[-1] * ip[-2]) > 1:
+            obs.count("launches.attn_sliced")
     return acc, m, l
 
 
@@ -508,4 +539,5 @@ __all__ = [
     "MASKED", "attn_iparams", "channel_chunks", "check_kernel_geometry", "check_smem", "chunk_rows",
     "decode_pages", "inv_sqrt", "merge_softmax", "page_tokens", "pass_slots",
     "paged_attention_decode", "paged_attention_decode_plain", "ring_bounds", "smem_bytes",
+    "token_slices",
 ]

@@ -38,6 +38,7 @@ COUNTERS = (
     "launches.encode",    # kernel A launches
     "launches.decode",    # kernel B launches
     "launches.attn",      # kernel C launches
+    "launches.attn_sliced",  # of those, launches whose attention runs in token slices
     "table_prep.hit",     # prepared-table memo hits
     "table_prep.miss",    # and misses
     "words.encoded",      # words the KV cache encoded into page slots

@@ -301,6 +301,46 @@ def test_chunk_rows(kg, hd, rows):
     assert t_pa.chunk_rows(kg, hd) == rows
 
 
+#: (fr, n_kv, hd, groups, pass tokens or None for pass_slots x page_tokens, ts)
+TOKEN_SLICES = {
+    "mixtral-trinity-cell": (KV_FR, 1, 128, 6, None, 16),   # one chip's share, G 6
+    "musicgen": (KV_FR, 32, 64, 1, None, 1),                # a pass is one tile
+    "llama405b-serving": (KV_FR, 8, 128, 16, None, 1),      # 128 rows fill the block
+    "paligemma-hd256": (KV_FR, 1, 256, 8, None, 2),         # one row a warp at 8 channels a lane
+    "hd512": (KV_FR, 1, 512, 8, None, 1),                   # channel chunks: never sliced
+    "mixtral-8kv": (KV_FR, 8, 128, 6, None, 2),             # 48 rows, 6 a warp at ts 2
+    "short-pass": (KV_FR, 1, 128, 6, 24, 2),                # 3 tiles bound ts
+    "one-tile": (KV_FR, 1, 128, 6, 8, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(TOKEN_SLICES))
+def test_token_slices(case):
+    """ts is the largest power of two up to 16 that the pass's 8-token tiles
+    and the rows a warp may own allow; each slice's warps still cover every
+    row of the block."""
+    fr_kw, n_kv, hd, groups, tokens, want = TOKEN_SLICES[case]
+    cfg = tfr.FRConfig(**fr_kw)
+    if tokens is None:
+        tokens = t_pa.pass_slots(cfg, n_kv=n_kv, hd=hd, groups=groups) * t_pa.page_tokens(cfg, n_kv, hd)
+    ts = t_pa.token_slices(n_kv * groups, hd, tokens)
+    assert ts == want
+    rows = t_pa.chunk_rows(n_kv * groups, hd)
+    per_warp = -(-rows * ts // t_pa.ATTN_WARPS)
+    assert per_warp * (t_pa.ATTN_WARPS // ts) >= rows
+    assert ts <= -(-tokens // t_pa.TILE_TOKENS) or ts == 1
+
+
+@pytest.mark.parametrize("geom", [(1, 128, 6), (32, 64, 1)], ids=["g6-hd128", "g1-hd64"])
+def test_pass_slots_stay_at_the_decode_cells(geom):
+    """The slices' state costs no pass slot at the benchmark's decode cells:
+    8 slots a pass, in one block an SM's shared memory."""
+    n_kv, hd, groups = geom
+    kv = tfr.FRConfig(**KV_FR)
+    assert t_pa.pass_slots(kv, n_kv=n_kv, hd=hd, groups=groups) == 8
+    assert t_pa.smem_bytes(kv, n_kv=n_kv, hd=hd, groups=groups) <= t_enc.SMEM_LIMIT_BYTES
+
+
 def test_pass_slots_fall_as_groups_grow():
     kv = tfr.FRConfig(**KV_FR)
     ns = [t_pa.pass_slots(kv, n_kv=8, hd=128, groups=g) for g in (1, 2, 4, 8, 12, 16)]
@@ -478,30 +518,42 @@ def _single_width(page_words):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["pt2", "pt4", "pt1", "adaptive", "llama405b",
-                                  "hd256", "hd32", "hd80", "hd33", "hd512", "hd384"])
+                                  "hd256", "hd32", "hd80", "hd33", "hd512", "hd384",
+                                  "g6-hd128", "paligemma"])
 def test_kernel_matches_plain_on_card(cuda_device, case):
     """Every channels-per-lane build of the kernel (hd 32, 64, 80 and 128,
-    256), the odd-hd path (no channel pairs), a page of 32 tokens, and heads
-    split into two channel chunks (hd 512, and hd 384 with a half chunk)."""
+    256), the odd-hd path (no channel pairs), a page of 32 tokens, heads
+    split into two channel chunks (hd 512, and hd 384 with a half chunk), and
+    the attention in token slices: 16 at the decode cells' G 6 on one KV
+    head of 128 (45 slots, so a split's last pass is short), 2 at
+    paligemma's G 8 at hd 256.  ``launches.attn_sliced`` rises with each
+    sliced launch and stays put at the serving shape."""
     cfg = tfr.FRConfig(**{"adaptive": ADAPTIVE, "pt4": FR48, "llama405b": KV_FR,
                           "hd256": KV_FR, "hd80": _single_width(640),
                           "hd33": _single_width(4224), "hd512": KV_FR,
-                          "hd384": _single_width(1536)}.get(case, FR8))
+                          "hd384": _single_width(1536), "g6-hd128": KV_FR,
+                          "paligemma": KV_FR}.get(case, FR8))
     n_kv, hd, groups, slots = {"pt2": (2, 64, 2, 37), "pt4": (1, 64, 4, 40),
                                "pt1": (2, 128, 3, 50), "adaptive": (2, 64, 2, 33),
                                "llama405b": (8, 128, 16, 64), "hd256": (4, 256, 4, 21),
                                "hd32": (2, 32, 8, 30), "hd80": (1, 80, 3, 25),
                                "hd33": (1, 33, 2, 6), "hd512": (1, 512, 8, 27),
-                               "hd384": (1, 384, 3, 19)}[case]
+                               "hd384": (1, 384, 3, 19), "g6-hd128": (1, 128, 6, 45),
+                               "paligemma": (1, 256, 8, 21)}[case]
     pk, pv, table, pt = _card_pages(cfg, n_kv, hd, slots, cuda_device, seed=slots)
     q = torch.randn(B, n_kv, groups, hd, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0))
+    n = t_pa.pass_slots(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    sliced = t_pa.token_slices(n_kv * groups, hd, n * pt) > 1
+    if case in ("g6-hd128", "paligemma", "llama405b"):
+        assert sliced == (case != "llama405b")
     for pos in (slots * pt - 1, slots * pt // 3, pt - 1):
-        n0 = _launches("attn")
+        n0, s0 = _launches("attn"), _launches("attn_sliced")
         got = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, n_kv=n_kv, hd=hd,
                                           groups=groups)
         torch.cuda.synchronize()
         assert _launches("attn") == n0 + 1
+        assert _launches("attn_sliced") == s0 + sliced
         want = t_pa.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, n_kv=n_kv,
                                                  hd=hd, groups=groups)
         if pos < pt:
@@ -549,7 +601,9 @@ def test_smem_formula_matches_kernel_source(cuda_device):
     for kw, geom in ((FR8, dict(n_kv=2, hd=64, groups=2)), (ADAPTIVE, dict(n_kv=1, hd=64, groups=4)),
                      (KV_FR, LLAMA405B), (KV_FR, dict(n_kv=8, hd=128, groups=32)),
                      (ADAPTIVE_2048, dict(n_kv=8, hd=128, groups=4)),
-                     (KV_FR, dict(n_kv=1, hd=512, groups=8))):
+                     (KV_FR, dict(n_kv=1, hd=512, groups=8)),
+                     (KV_FR, dict(n_kv=1, hd=128, groups=6)),
+                     (KV_FR, dict(n_kv=1, hd=256, groups=8))):
         cfg = tfr.FRConfig(**kw)
         for n in range(1, t_pa.MAX_PASS_SLOTS + 1):
             ip = _build.int_array(t_pa.attn_iparams(cfg, **geom, pass_n=n))
