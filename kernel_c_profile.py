@@ -218,12 +218,13 @@ def main(argv: list[str] | None = None) -> int:
             pa_mod._lib = plain_lib
 
     attend("kernel")   # the occupancy the plan reads is the profiled source's
-    ip = pa_mod._launch_plan(KV_FR, B, pk["n_out"].shape[1], pos, dev, **geom)
-    ts = pa_mod.token_slices(N_KV * GROUPS, HD, ip[-1] * pt)
+    S = pk["n_out"].shape[1]
+    plan = pa_mod._launch_plan(pa_mod.attn_geometry(KV_FR, **geom), B, S,
+                               pa_mod.ring_bounds(S, pos, pt, 0)[0], dev)
     print(f"shape ({args.geometry}): B={B} Kv={N_KV} G={GROUPS} hd={HD}, {pos // pt} full pages "
-          f"of {pt} tokens a row; pass size {ip[-1]}, splits {ip[-7]}, run {ip[-6]} slots, "
-          f"{pa_mod._blocks_per_sm(KV_FR, N_KV, HD, GROUPS, 0)} block(s) an SM, token slices "
-          f"{ts} by this checkout's rule", flush=True)
+          f"of {pt} tokens a row; pass size {plan.geom.pass_n}, splits {plan.splits}, run "
+          f"{plan.run} slots, {pa_mod._blocks_per_sm(KV_FR, N_KV, HD, GROUPS, 0)} block(s) an SM, "
+          f"token slices {plan.geom.ts} by this checkout's rule", flush=True)
     for name in ("kernel", "no_decode", "no_attention", "phases",
                  "phases", "no_attention", "no_decode", "kernel"):
         ms, lo = timed(lambda: attend(name))

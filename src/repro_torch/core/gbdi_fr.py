@@ -17,6 +17,8 @@ lane must never pass through a signed shift.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -176,6 +178,64 @@ class FRConfig:
 
     def bits_per_word(self) -> float:
         return self.compressed_bytes_per_page() * 8 / self.page_words
+
+
+# ---------------------------------------------------------------------------
+# the blob layout: every module that allocates, checks, reshapes or hands a
+# kernel a blob's fields takes them from here
+# ---------------------------------------------------------------------------
+
+#: a blob's int32 fields in the order the kernels take their pointers, each
+#: with the FRConfig property that sizes its one trailing axis (None: one
+#: int32 a page); ``profile`` exists only where ``cfg.num_profiles > 1``
+BLOB_LAYOUT = (("ptrs", "ptr_lanes"), ("deltas", "delta_lanes"),
+               ("out_vals", "outlier_cap"), ("out_idx", "outlier_cap"), ("n_out", None),
+               ("n_spilled", None), ("n_dropped", None), ("profile", None))
+#: the encode's per-page counts, which a stored page does not keep
+COUNT_FIELDS = ("n_spilled", "n_dropped")
+#: the fields a stored page keeps
+PAGE_FIELDS = tuple(k for k, _ in BLOB_LAYOUT if k not in COUNT_FIELDS)
+_TRAILING_DIMS = {k: 0 if size is None else 1 for k, size in BLOB_LAYOUT}
+
+
+def blob_shapes(cfg: FRConfig, *, counts: bool = False) -> dict[str, tuple[int, ...]]:
+    """Each field of a page's blob -> its trailing shape under ``cfg``, in
+    kernel order; with ``counts``, the encode's counts too (what
+    :func:`fr_encode` returns)."""
+    return dict(_blob_shapes(cfg, counts))
+
+
+@functools.lru_cache(maxsize=64)
+def _blob_shapes(cfg: FRConfig, counts: bool) -> tuple[tuple[str, tuple[int, ...]], ...]:
+    return tuple((k, () if size is None else (getattr(cfg, size),)) for k, size in BLOB_LAYOUT
+                 if (counts or k not in COUNT_FIELDS) and (k != "profile" or cfg.num_profiles > 1))
+
+
+def alloc_blob(cfg: FRConfig, lead: tuple[int, ...], device: torch.device | str, *,
+               counts: bool = False, zeros: bool = False) -> dict[str, torch.Tensor]:
+    """A blob of ``lead`` pages (any leading dims), int32, uninitialised or
+    zeroed."""
+    new = torch.zeros if zeros else torch.empty
+    return {k: new(tuple(lead) + shape, dtype=torch.int32, device=device)
+            for k, shape in blob_shapes(cfg, counts=counts).items()}
+
+
+def flat_blob(blob: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The blob's fields with their leading dims flattened to one page axis,
+    contiguous; keys outside the layout are dropped."""
+    out = {}
+    for k, v in blob.items():
+        if k in _TRAILING_DIMS:
+            split = v.dim() - _TRAILING_DIMS[k]
+            out[k] = v.reshape((math.prod(v.shape[:split]),) + v.shape[split:]).contiguous()
+    return out
+
+
+def lead_blob(blob: dict[str, torch.Tensor], lead: tuple[int, ...],
+              fields: tuple[str, ...] = tuple(_TRAILING_DIMS)) -> dict[str, torch.Tensor]:
+    """A flat blob's ``fields`` with the page axis reshaped to ``lead`` (one
+    ``-1`` allowed): the inverse of :func:`flat_blob`."""
+    return {k: v.reshape(tuple(lead) + v.shape[1:]) for k, v in blob.items() if k in fields}
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from repro_torch.kernels.gbdi_encode import (
     MAX_CLASSES,
     SMEM_LIMIT_BYTES,
     PreparedTable,
-    check_cuda_input,
+    blob_ptrs,
     check_prepared,
     check_smem,
     kernel_iparams,
@@ -87,24 +87,15 @@ def gbdi_decode(blob: dict[str, torch.Tensor], table: TableLike | PreparedTable,
     if dev.type != "cuda":
         raise ValueError(f"gbdi_decode runs on cuda (kernel) or cpu (plain), not {dev}")
     n = blob["ptrs"].shape[0]
-    shapes = {"ptrs": (n, cfg.ptr_lanes), "deltas": (n, cfg.delta_lanes),
-              "out_vals": (n, cfg.outlier_cap), "out_idx": (n, cfg.outlier_cap),
-              "n_out": (n,)}
-    if cfg.num_profiles > 1:
-        shapes["profile"] = (n,)
-    for key, shape in shapes.items():
-        check_cuda_input(blob[key], key, shape)
+    blob_in = blob_ptrs(blob, cfg, (n,))
     check_smem(cfg, smem_bytes(cfg))
     prep = prepare_table(table, cfg, dev)
     check_prepared(prep, cfg)
     bases, cls, meta = prep.bases, prep.cls, prep.meta
     out = torch.empty((n, cfg.page_words), dtype=torch.int32, device=dev)
     lib = _build.load("gbdi_decode")
-    ptrs = _build.ptr_array([
-        *(blob[k].data_ptr() for k in ("ptrs", "deltas", "out_vals", "out_idx", "n_out")),
-        blob["profile"].data_ptr() if cfg.num_profiles > 1 else 0,
-        bases.data_ptr(), cls.data_ptr(), meta.data_ptr(), out.data_ptr(),
-    ])
+    ptrs = _build.ptr_array([*blob_in, bases.data_ptr(), cls.data_ptr(), meta.data_ptr(),
+                             out.data_ptr()])
     with torch.cuda.device(dev):
         rc = lib.gbdi_decode_launch(ptrs, _build.int_array(kernel_iparams(cfg, n)),
                                     torch.cuda.current_stream(dev).cuda_stream)

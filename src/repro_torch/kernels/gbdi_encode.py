@@ -30,7 +30,7 @@ import torch
 from repro_torch import obs
 from repro_torch._device import upload
 from repro_torch.core.format import BaseTable, TableLike, as_base_table, class_indices
-from repro_torch.core.gbdi_fr import FRConfig, fr_encode
+from repro_torch.core.gbdi_fr import FRConfig, alloc_blob, blob_shapes, fr_encode
 from repro_torch.kernels import _build
 
 #: dynamic shared memory one Hopper block may use (227 KB)
@@ -193,6 +193,20 @@ def check_cuda_input(t: torch.Tensor, name: str, shape: tuple[int, ...]) -> None
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def blob_ptrs(blob: dict[str, torch.Tensor], cfg: FRConfig, lead: tuple[int, ...], *,
+              counts: bool = False, side: str = "") -> list[int]:
+    """Every field of ``blob`` (``lead`` pages; with ``counts``, the encode's
+    counts too) checked by :func:`check_cuda_input` against the layout, and
+    their pointers in the kernels' order, 0 for the ``profile`` of a
+    single-profile config."""
+    ptrs = []
+    for key, shape in blob_shapes(cfg, counts=counts).items():
+        t = blob[key]
+        check_cuda_input(t, side + key, lead + shape)
+        ptrs.append(t.data_ptr())
+    return ptrs if cfg.num_profiles > 1 else ptrs + [0]
+
+
 def check_prepared(prep: PreparedTable, cfg: FRConfig) -> None:
     """Raise unless a prepared table's tensors are what the kernels read:
     contiguous int32 of ``k_padded(cfg)`` bases and classes and the
@@ -232,27 +246,11 @@ def _encode_cuda(x_pages: torch.Tensor, table: TableLike | PreparedTable,
     prep = prepare_table(table, cfg, dev)
     check_prepared(prep, cfg)
     bases, cls, meta = prep.bases, prep.cls, prep.meta
-
-    def out(*shape: int) -> torch.Tensor:
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    blob = {
-        "ptrs": out(n, cfg.ptr_lanes),
-        "deltas": out(n, cfg.delta_lanes),
-        "out_vals": out(n, cfg.outlier_cap),
-        "out_idx": out(n, cfg.outlier_cap),
-        "n_out": out(n),
-        "n_spilled": out(n),
-        "n_dropped": out(n),
-    }
-    if cfg.num_profiles > 1:
-        blob["profile"] = out(n)
+    blob = alloc_blob(cfg, (n,), dev, counts=True)
     lib = _build.load("gbdi_encode")
     ptrs = _build.ptr_array([
         x_pages.data_ptr(), bases.data_ptr(), cls.data_ptr(), meta.data_ptr(),
-        *(blob[k].data_ptr() for k in ("ptrs", "deltas", "out_vals", "out_idx",
-                                       "n_out", "n_spilled", "n_dropped")),
-        blob["profile"].data_ptr() if cfg.num_profiles > 1 else 0,
+        *blob_ptrs(blob, cfg, (n,), counts=True),
     ])
     with torch.cuda.device(dev):
         rc = lib.gbdi_encode_launch(ptrs, _build.int_array(kernel_iparams(cfg, n)),
@@ -265,8 +263,8 @@ def _encode_cuda(x_pages: torch.Tensor, table: TableLike | PreparedTable,
 
 
 __all__ = [
-    "MAX_PAGE_WORDS", "PREP_CAP", "PreparedTable", "SMEM_LIMIT_BYTES", "check_prepared", "check_smem",
-    "gbdi_encode", "gbdi_encode_plain", "k_padded", "kernel_iparams", "kernel_meta",
-    "pad_table", "plain_table", "prepare_table", "smem_bytes",
+    "MAX_PAGE_WORDS", "PREP_CAP", "PreparedTable", "SMEM_LIMIT_BYTES", "blob_ptrs",
+    "check_prepared", "check_smem", "gbdi_encode", "gbdi_encode_plain", "k_padded",
+    "kernel_iparams", "kernel_meta", "pad_table", "plain_table", "prepare_table", "smem_bytes",
     "table_cache_clear", "table_cache_info",
 ]

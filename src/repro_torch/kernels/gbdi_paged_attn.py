@@ -19,12 +19,12 @@ device, counts the launch in the counter ``launches.attn`` of
 attention step runs in token slices, :func:`token_slices`) and records its
 host work as the span ``paged_attn``; for tensors on the CPU it runs
 :func:`paged_attention_decode_plain`, and for any other device it raises.
-Both paths first check the geometry (16-bit words,
-``page_words`` holding a whole number of ``Kv * hd`` rows) and the
-block's shared memory (:func:`check_smem`, where the reference's VMEM check
-stood), which also fixes the kernel's pass size: the page slots it decodes
-at once (:func:`pass_slots`).  :func:`decode_pages` exposes that batched
-decode alone, so it can be held bit for bit against the decode kernel.
+Both paths first take the call's geometry once (:func:`attn_geometry`:
+16-bit words, whole ``Kv * hd`` rows in a page, and :func:`check_smem`,
+where the reference's VMEM check stood, which fixes the page slots a pass
+decodes); on the card a :class:`LaunchPlan` adds the grid.
+:func:`decode_pages` exposes that batched decode alone, so it can be held
+bit for bit against the decode kernel.
 
 With ``window=W > 0`` the page slots are a sliding window's ring (a layer
 of a window/full hybrid, :class:`~repro_torch.serving.kv_cache.KVSpec`'s
@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,13 +52,13 @@ import torch
 from repro_torch import obs
 from repro_torch._device import upload
 from repro_torch.core.format import WORD16_MASK, TableLike, as_base_table
-from repro_torch.core.gbdi_fr import FRConfig, fr_decode, words_to_bf16
+from repro_torch.core.gbdi_fr import FRConfig, flat_blob, fr_decode, words_to_bf16
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdi_encode import (
     MAX_CLASSES,
     SMEM_LIMIT_BYTES,
     PreparedTable,
-    check_cuda_input,
+    blob_ptrs,
     check_prepared,
     k_padded,
     kernel_iparams,
@@ -71,8 +72,6 @@ MASKED = -1e30
 MASKED_GUARD = -1e29
 #: page slots the plain version decodes at a time (per batch row)
 PLAIN_CHUNK_SLOTS = 1024
-#: blob fields in the order the kernel takes their pointers (profile last)
-BLOB_KEYS = ("ptrs", "deltas", "out_vals", "out_idx", "n_out")
 #: the attention block: 512 threads in 16 warps; a thread keeps 32
 #: accumulators (8 at 8 channels a lane), so a warp owns up to 32 /
 #: channels-per-lane (kv, group) rows
@@ -200,13 +199,34 @@ def check_smem(cfg: FRConfig, *, n_kv: int, hd: int, groups: int) -> int:
     return n
 
 
-def check_kernel_geometry(cfg: FRConfig, hd: int) -> None:
-    """What the kernel takes beyond the shared-memory budget: bf16 pages
-    (16-bit words).  Both paths check it, so the CPU's answer is the card's;
-    the head dim is bounded by the shared-memory check alone."""
+class AttnGeometry(NamedTuple):
+    """What a call derives from ``(cfg, n_kv, hd, groups)`` (:func:`attn_geometry`):
+    tokens a page, page slots a pass, row chunks times channel chunks (the
+    grid's third axis) and token slices (:func:`token_slices`)."""
+
+    cfg: FRConfig
+    n_kv: int
+    hd: int
+    groups: int
+    pt: int
+    pass_n: int
+    chunks: int
+    ts: int
+
+
+def attn_geometry(cfg: FRConfig, *, n_kv: int, hd: int, groups: int) -> AttnGeometry:
+    """The call's checked geometry: bf16 pages (16-bit words), whole rows in
+    a page and a block that fits (:func:`check_smem`, which picks the pass
+    size and alone bounds the head dim), then the chunks and token slices.
+    Both paths take it, so the CPU's answer is the card's."""
     if cfg.word_bits != 16:
         raise ValueError(f"the paged-attention kernel reads 16-bit (bf16) KV pages, "
                          f"not word_bits={cfg.word_bits}")
+    pass_n = check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    pt, kg = page_tokens(cfg, n_kv, hd), n_kv * groups
+    return AttnGeometry(cfg, n_kv, hd, groups, pt, pass_n,
+                        -(-kg // chunk_rows(kg, hd)) * channel_chunks(hd),
+                        token_slices(kg, hd, pass_n * pt))
 
 
 def inv_sqrt(hd: int, device: torch.device | str) -> torch.Tensor:
@@ -241,6 +261,20 @@ def merge_softmax(
     l = l1 * a1 + l2 * a2
     acc = acc1 * a1[..., None] + acc2 * a2[..., None]
     return acc, m, l
+
+
+def softmax_chunk(
+    q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, live: torch.Tensor, scale: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk's un-merged ``(acc, m, l)`` in float32: the scores of ``q
+    (B, Kv, G, hd)`` against ``K (B, T, Kv, hd)`` times ``scale``, masked to
+    ``MASKED`` where ``live (T,)`` is False, their max, ``exp`` guarded so a
+    score at or below ``MASKED_GUARD`` weighs 0, then ``p . V`` and the sum
+    of ``p``.  The caller merges it (:func:`merge_softmax`)."""
+    logits = torch.where(live, torch.einsum("bkgh,btkh->bkgt", q, K) * scale, MASKED)
+    m = logits.max(dim=-1).values
+    p = torch.where(logits <= MASKED_GUARD, 0.0, torch.exp(logits - m[..., None]))
+    return torch.einsum("bkgt,btkh->bkgh", p, V), m, p.sum(dim=-1)
 
 
 def ring_bounds(S: int, pos: int, pt: int, window: int) -> tuple[int, int, int]:
@@ -294,13 +328,11 @@ def paged_attention_decode_plain(
     bt = as_base_table(plain_table(table), default_width=cfg.widest_bits, device=dev)
 
     def decode(pages: dict[str, torch.Tensor], s0: int, s1: int) -> torch.Tensor:
-        blob = {k: v[:, s0:s1].reshape((B * (s1 - s0),) + v.shape[2:]) for k, v in pages.items()}
+        blob = flat_blob({k: v[:, s0:s1] for k, v in pages.items()})
         return words_to_bf16(fr_decode(blob, bt, cfg)).float().reshape(B, (s1 - s0) * pt, n_kv, hd)
 
     for s0 in range(0, n_valid, chunk_slots):
         s1 = min(S, s0 + chunk_slots)
-        K, V = decode(pages_k, s0, s1), decode(pages_v, s0, s1)
-        logits = torch.einsum("bkgh,btkh->bkgt", qf, K) * scale
         if window:      # each slot's page, by the ring; slots past n_valid fall before lo
             slot = torch.arange(s0, s1, device=dev)
             page = cur - 1 - torch.remainder(cur - 1 - slot, S)
@@ -308,11 +340,8 @@ def paged_attention_decode_plain(
             live = (tok < limit) & (tok >= lo)
         else:
             live = torch.arange(s0 * pt, s1 * pt, device=dev) < limit
-        logits = torch.where(live[None, None, None, :], logits, MASKED)
-        mc = logits.max(dim=-1).values
-        p = torch.where(logits <= MASKED_GUARD, 0.0, torch.exp(logits - mc[..., None]))
-        accc = torch.einsum("bkgt,btkh->bkgh", p, V)
-        acc, m, l = merge_softmax(acc, m, l, accc, mc, p.sum(dim=-1))
+        chunk = softmax_chunk(qf, decode(pages_k, s0, s1), decode(pages_v, s0, s1), live, scale)
+        acc, m, l = merge_softmax(acc, m, l, *chunk)
     return acc, m, l
 
 
@@ -380,41 +409,35 @@ def _blocks_per_sm(cfg: FRConfig, n_kv: int, hd: int, groups: int, device: int,
     return n
 
 
-def _launch_plan(cfg: FRConfig, B: int, S: int, pos: int, dev: torch.device, *, n_kv: int,
-                 hd: int, groups: int, n_valid: int | None = None,
-                 ring: bool = False) -> list[int]:
-    """The kernel's iparams for a call on ``dev``: pass size, splits, run,
-    planned over ``n_valid`` slots (default: the full pages before ``pos``)."""
-    pass_n = check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
-    pt = page_tokens(cfg, n_kv, hd)
-    if n_valid is None:
-        n_valid = max(0, min(S, int(pos) // pt))
-    chunks = -(-(n_kv * groups) // chunk_rows(n_kv * groups, hd)) * channel_chunks(hd)
-    splits, run = _splits(
-        n_valid, B, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
-        per_sm=_blocks_per_sm(cfg, n_kv, hd, groups, dev.index or 0, ring), pass_n=pass_n,
-        chunks=chunks)
-    return attn_iparams(cfg, n_kv=n_kv, hd=hd, groups=groups, batch=B, n_slots=S,
-                        n_valid=n_valid, splits=splits, run=run, pass_n=pass_n)
+class LaunchPlan(NamedTuple):
+    """One launch: its geometry, the ``(batch, n_slots)`` page slots of
+    which the first ``n_valid`` are read, in ``splits`` runs of ``run``
+    slots (:func:`_splits`)."""
+
+    geom: AttnGeometry
+    batch: int
+    n_slots: int
+    n_valid: int
+    splits: int
+    run: int
+
+    def iparams(self) -> list[int]:
+        """The kernel's scalar parameters (:func:`attn_iparams`)."""
+        g = self.geom
+        return attn_iparams(g.cfg, n_kv=g.n_kv, hd=g.hd, groups=g.groups, batch=self.batch,
+                            n_slots=self.n_slots, n_valid=self.n_valid, splits=self.splits,
+                            run=self.run, pass_n=g.pass_n)
 
 
-def _check_pages(cfg: FRConfig, pages_k: dict[str, torch.Tensor],
-                 pages_v: dict[str, torch.Tensor]) -> tuple[int, int]:
-    B, S = pages_k["ptrs"].shape[:2]
-    shapes = {"ptrs": (B, S, cfg.ptr_lanes), "deltas": (B, S, cfg.delta_lanes),
-              "out_vals": (B, S, cfg.outlier_cap), "out_idx": (B, S, cfg.outlier_cap),
-              "n_out": (B, S)}
-    if cfg.num_profiles > 1:
-        shapes["profile"] = (B, S)
-    for side, pages in (("k", pages_k), ("v", pages_v)):
-        for key, shape in shapes.items():
-            check_cuda_input(pages[key], f"{side} {key}", shape)
-    return B, S
-
-
-def _blob_ptrs(cfg: FRConfig, pages: dict[str, torch.Tensor]) -> list[int]:
-    return [*(pages[k].data_ptr() for k in BLOB_KEYS),
-            pages["profile"].data_ptr() if cfg.num_profiles > 1 else 0]
+def _launch_plan(geom: AttnGeometry, B: int, S: int, n_valid: int, dev: torch.device,
+                 ring: bool = False) -> LaunchPlan:
+    """The plan of a call on ``dev`` over ``n_valid`` of ``S`` slots a row:
+    the splits that fill the card's SMs, by the occupancy of the full or the
+    ring instantiation."""
+    g, sms = geom, torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = _blocks_per_sm(g.cfg, g.n_kv, g.hd, g.groups, dev.index or 0, ring)
+    splits, run = _splits(n_valid, B, sms=sms, per_sm=per_sm, pass_n=g.pass_n, chunks=g.chunks)
+    return LaunchPlan(geom, B, S, n_valid, splits, run)
 
 
 def _table_ptrs(table: TableLike | PreparedTable, cfg: FRConfig,
@@ -440,8 +463,7 @@ def paged_attention_decode(
         with obs.span("paged_attn"):
             return _attend_cuda(q, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
                                 groups=groups, window=window)
-    check_kernel_geometry(cfg, hd)
-    check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
     if dev.type != "cpu":
         raise ValueError(f"paged_attention_decode runs on cuda (kernel) or cpu (plain), not {dev}")
     return paged_attention_decode_plain(q, pages_k, pages_v, table, pos, cfg,
@@ -454,42 +476,42 @@ def _attend_cuda(
     table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int,
     groups: int, window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    check_kernel_geometry(cfg, hd)
-    check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    geom = attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
     dev = pages_k["ptrs"].device
-    B, S = _check_pages(cfg, pages_k, pages_v)
+    B, S = pages_k["ptrs"].shape[:2]
+    blob_k = blob_ptrs(pages_k, cfg, (B, S), side="k ")
+    blob_v = blob_ptrs(pages_v, cfg, (B, S), side="v ")
     q = q.reshape(B, n_kv, groups, hd)
     if q.device != dev:
         raise ValueError(f"q lies on {q.device}, the pages on {dev}")
     q = q.float().contiguous()
-    n_valid, cur, lo = ring_bounds(S, pos, page_tokens(cfg, n_kv, hd), window)
-    ip = _launch_plan(cfg, B, S, pos, dev, n_kv=n_kv, hd=hd, groups=groups, n_valid=n_valid,
-                      ring=bool(window))
-    splits, kg = ip[-7], n_kv * groups
+    n_valid, cur, lo = ring_bounds(S, pos, geom.pt, window)
+    plan = _launch_plan(geom, B, S, n_valid, dev, ring=bool(window))
     keep, table_ptrs = _table_ptrs(table, cfg, dev)
 
     def f32(*shape: int) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
+    kg, splits = n_kv * groups, plan.splits
     part_acc, part_m, part_l = f32(B, splits, kg, hd), f32(B, splits, kg), f32(B, splits, kg)
     acc, m, l = f32(B, n_kv, groups, hd), f32(B, n_kv, groups), f32(B, n_kv, groups)
     ptrs = _build.ptr_array([
-        q.data_ptr(), *_blob_ptrs(cfg, pages_k), *_blob_ptrs(cfg, pages_v), *table_ptrs,
+        q.data_ptr(), *blob_k, *blob_v, *table_ptrs,
         part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
     ])
+    ip = _build.int_array(plan.iparams())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if window:
-            rc = _lib().gbdi_paged_attn_ring_launch(ptrs, _build.int_array(ip),
-                                                    _build.int_array([cur, lo]), stream)
+            rc = _lib().gbdi_paged_attn_ring_launch(ptrs, ip, _build.int_array([cur, lo]), stream)
         else:
-            rc = _lib().gbdi_paged_attn_launch(ptrs, _build.int_array(ip), stream)
+            rc = _lib().gbdi_paged_attn_launch(ptrs, ip, stream)
     if rc != 0:
         raise RuntimeError(f"gbdi_paged_attn launch failed (code {rc})")
     if B:
         obs.count("launches.attn")
-        if token_slices(kg, hd, ip[-1] * ip[-2]) > 1:
+        if geom.ts > 1:
             obs.count("launches.attn_sliced")
     return acc, m, l
 
@@ -505,8 +527,7 @@ def decode_pages(
     attention splits them); on the CPU, from :func:`fr_decode`.  It exists
     to hold that decode bit for bit against the decode kernel, and counts
     no launch."""
-    check_kernel_geometry(cfg, hd)
-    check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    geom = attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
     B, S = pages_k["ptrs"].shape[:2]
     n_valid = max(0, min(S, int(n_valid)))
     dev = pages_k["ptrs"].device
@@ -514,21 +535,21 @@ def decode_pages(
         bt = as_base_table(plain_table(table), default_width=cfg.widest_bits, device=dev)
 
         def plain(pages: dict[str, torch.Tensor]) -> torch.Tensor:
-            blob = {k: v[:, :n_valid].reshape((B * n_valid,) + v.shape[2:]) for k, v in pages.items()}
+            blob = flat_blob({k: v[:, :n_valid] for k, v in pages.items()})
             return fr_decode(blob, bt, cfg).reshape(B, n_valid, cfg.page_words)
 
         return plain(pages_k), plain(pages_v)
     if dev.type != "cuda":
         raise ValueError(f"decode_pages runs on cuda (kernel) or cpu (plain), not {dev}")
-    _check_pages(cfg, pages_k, pages_v)
-    ip = _launch_plan(cfg, B, S, 0, dev, n_kv=n_kv, hd=hd, groups=groups, n_valid=n_valid)
+    blob_k = blob_ptrs(pages_k, cfg, (B, S), side="k ")
+    blob_v = blob_ptrs(pages_v, cfg, (B, S), side="v ")
+    plan = _launch_plan(geom, B, S, n_valid, dev)
     keep, table_ptrs = _table_ptrs(table, cfg, dev)
     out_k, out_v = (torch.empty(B, n_valid, cfg.page_words, dtype=torch.int16, device=dev)
                     for _ in "kv")
-    ptrs = _build.ptr_array([*_blob_ptrs(cfg, pages_k), *_blob_ptrs(cfg, pages_v), *table_ptrs,
-                             out_k.data_ptr(), out_v.data_ptr()])
+    ptrs = _build.ptr_array([*blob_k, *blob_v, *table_ptrs, out_k.data_ptr(), out_v.data_ptr()])
     with torch.cuda.device(dev):
-        rc = _lib().gbdi_paged_attn_decode_launch(ptrs, _build.int_array(ip),
+        rc = _lib().gbdi_paged_attn_decode_launch(ptrs, _build.int_array(plan.iparams()),
                                                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gbdi_paged_attn decode launch failed (code {rc})")
@@ -536,8 +557,8 @@ def decode_pages(
 
 
 __all__ = [
-    "MASKED", "attn_iparams", "channel_chunks", "check_kernel_geometry", "check_smem", "chunk_rows",
-    "decode_pages", "inv_sqrt", "merge_softmax", "page_tokens", "pass_slots",
-    "paged_attention_decode", "paged_attention_decode_plain", "ring_bounds", "smem_bytes",
-    "token_slices",
+    "MASKED", "AttnGeometry", "LaunchPlan", "attn_geometry", "attn_iparams", "channel_chunks",
+    "check_smem", "chunk_rows", "decode_pages", "inv_sqrt",
+    "merge_softmax", "page_tokens", "pass_slots", "paged_attention_decode",
+    "paged_attention_decode_plain", "ring_bounds", "smem_bytes", "softmax_chunk", "token_slices",
 ]

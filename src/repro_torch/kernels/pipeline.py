@@ -40,14 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.format import WORD16_MASK, TableLike
-from repro_torch.core.gbdi_fr import FRConfig
+from repro_torch.core.gbdi_fr import FRConfig, flat_blob, lead_blob
 from repro_torch.kernels import ops
 from repro_torch.kernels.gbdi_encode import PreparedTable, prepare_table
-
-#: trailing (non-batch) dims per blob field ("profile" only exists for
-#: multi-profile configs); a copy of ``repro/kernels/xla.py:BLOB_TRAILING``
-BLOB_TRAILING = {"ptrs": 1, "deltas": 1, "out_vals": 1, "out_idx": 1,
-                 "n_out": 0, "n_spilled": 0, "n_dropped": 0, "profile": 0}
 
 Devices = Sequence[Any] | int | None
 
@@ -114,19 +109,6 @@ def _prep(table: TableLike | PreparedTable, cfg: FRConfig, dev: torch.device
     return prepare_table(table, cfg, dev) if dev.type == "cuda" else table
 
 
-def _lead_reshape(blob: dict[str, torch.Tensor], lead: tuple[int, ...]) -> dict[str, torch.Tensor]:
-    if lead == tuple(blob["n_out"].shape):
-        return blob
-    return {k: v.reshape(lead + tuple(v.shape[1:1 + BLOB_TRAILING[k]])) for k, v in blob.items()}
-
-
-def _flat_blob(blob: dict[str, torch.Tensor], lead: tuple[int, ...]) -> dict[str, torch.Tensor]:
-    """The blob's fields with the leading axes flattened, contiguous (so every
-    row slice is too)."""
-    return {k: v.reshape((-1,) + tuple(v.shape[len(lead):])).contiguous()
-            for k, v in blob.items() if k in BLOB_TRAILING}
-
-
 def _pad_rows(x: torch.Tensor, shards: int) -> torch.Tensor:
     pad = (-x.shape[0]) % shards
     if not pad:
@@ -168,7 +150,7 @@ def encode_pages(
         blob = ops.encode_pages(flat, _prep(table, cfg, flat.device), cfg)
     else:
         blob = _encode_split(flat, table, cfg, devs)
-    return _lead_reshape(blob, lead)
+    return lead_blob(blob, lead)
 
 
 def _encode_split(flat: torch.Tensor, table: TableLike | PreparedTable, cfg: FRConfig,
@@ -211,7 +193,7 @@ def encode_pages_sharded(
         devs = (local_devices(flat.device.type) if devices is None
                 else _resolve_devices(devices, flat.device))
         blob = _encode_split(flat, table, cfg, devs)
-    return _lead_reshape(blob, lead)
+    return lead_blob(blob, lead)
 
 
 def _gather_rows(x: torch.Tensor, group: Any) -> torch.Tensor:
@@ -260,7 +242,7 @@ def decode_pages(
     words; the twin of :func:`encode_pages`.  ``unsigned=True`` masks the
     words to ``word_bits`` (module docstring)."""
     lead = tuple(blob["n_out"].shape)
-    flat = _flat_blob(blob, lead)
+    flat = flat_blob(blob)
     n_rows = flat["n_out"].shape[0]
     like = flat["ptrs"].device
     devs = _resolve_devices(devices, like)
@@ -298,7 +280,7 @@ def decode_pages_sharded(
     if mode not in ("split", "spmd"):
         raise ValueError(f"unknown mode {mode!r}; choose 'split' or 'spmd'")
     lead = tuple(blob["n_out"].shape)
-    flat = _flat_blob(blob, lead)
+    flat = flat_blob(blob)
     if mode == "spmd":
         n_rows = flat["n_out"].shape[0]
         mine = {k: _rank_slice(v, group) for k, v in flat.items()}
@@ -449,7 +431,7 @@ def encode_stream(
         x = b["x"]
         lead = tuple(x.shape[:-1])
         blob = ops.encode_pages(x.reshape(-1, cfg.page_words).contiguous(), prep, cfg)
-        return _lead_reshape(blob, lead)
+        return lead_blob(blob, lead)
 
     yield from _stream(({"x": x} for x in batches), dev, enc)
 
@@ -472,11 +454,11 @@ def decode_stream(
 
     def dec(b: dict[str, torch.Tensor]) -> torch.Tensor:
         lead = tuple(b["n_out"].shape)
-        return ops.decode_pages(_flat_blob(b, lead), prep, cfg).reshape(lead + (cfg.page_words,))
+        return ops.decode_pages(flat_blob(b), prep, cfg).reshape(lead + (cfg.page_words,))
 
     yield from _stream(blobs, dev, dec)
 
 
-__all__ = ["BLOB_TRAILING", "auto_shards", "decode_pages", "decode_pages_sharded",
+__all__ = ["auto_shards", "decode_pages", "decode_pages_sharded",
            "decode_stream", "device_count", "encode_pages", "encode_pages_sharded",
            "encode_stream", "local_devices"]

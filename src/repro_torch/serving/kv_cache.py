@@ -55,14 +55,22 @@ from repro_torch.core.format import (
     TableLike,
     as_base_table,
 )
-from repro_torch.core.gbdi_fr import FRConfig, bf16_to_words, words_to_bf16
+from repro_torch.core.gbdi_fr import (
+    PAGE_FIELDS,
+    FRConfig,
+    alloc_blob,
+    bf16_to_words,
+    flat_blob,
+    lead_blob,
+    words_to_bf16,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.gbdi_paged_attn import (
     MASKED,
-    MASKED_GUARD,
     inv_sqrt,
     merge_softmax,
     paged_attention_decode,
+    softmax_chunk,
 )
 
 KV_FR = FRConfig(word_bits=16, page_words=DEFAULT_PAGE_WORDS,
@@ -74,7 +82,7 @@ KV_FR = FRConfig(word_bits=16, page_words=DEFAULT_PAGE_WORDS,
 BACKENDS = ("oracle", "resident", "paged", "auto")
 #: blob fields a page slot keeps (the encode's n_spilled is dropped; its
 #: n_dropped goes to the counter ``words.dropped`` while recording)
-PAGE_KEYS = ("ptrs", "deltas", "out_vals", "out_idx", "n_out", "profile")
+PAGE_KEYS = PAGE_FIELDS
 
 # the cache: tensors plus the fitted BaseTable
 Cache = dict[str, Any]
@@ -179,26 +187,14 @@ def init_compressed(spec: KVSpec, batch: int, table: TableLike,
     """An empty cache on ``device`` (the card unless ``"cpu"`` is asked for)."""
     dev = resolve_device(device)
     fr = spec.fr
-    n_slots = spec.n_pages * spec.pages_per_row
-
-    def page_zeros() -> dict[str, torch.Tensor]:
-        def z(*shape: int) -> torch.Tensor:
-            return torch.zeros(shape, dtype=torch.int32, device=dev)
-
-        pages = {"ptrs": z(batch, n_slots, fr.ptr_lanes),
-                 "deltas": z(batch, n_slots, fr.delta_lanes),
-                 "out_vals": z(batch, n_slots, fr.outlier_cap),
-                 "out_idx": z(batch, n_slots, fr.outlier_cap),
-                 "n_out": z(batch, n_slots)}
-        if fr.num_profiles > 1:   # adaptive cfg: per-page profile ids
-            pages["profile"] = z(batch, n_slots)
-        return pages
+    slots = (batch, spec.n_pages * spec.pages_per_row)
 
     def tail() -> torch.Tensor:
         return torch.zeros((batch, spec.page_tokens, spec.n_kv, spec.head_dim),
                            dtype=torch.bfloat16, device=dev)
 
-    cache: Cache = {"k_pages": page_zeros(), "v_pages": page_zeros(),
+    cache: Cache = {"k_pages": alloc_blob(fr, slots, dev, zeros=True),
+                    "v_pages": alloc_blob(fr, slots, dev, zeros=True),
                     "k_tail": tail(), "v_tail": tail(),
                     "table": as_base_table(table, default_width=fr.widest_bits, device=dev)}
     if spec.resident_decode:
@@ -218,16 +214,14 @@ def _compress_rows(spec: KVSpec, rows: torch.Tensor, table: TableLike) -> dict[s
     blob = ops.encode_pages(words, table, spec.fr)
     obs.count("words.encoded", words.numel())
     obs.count("words.dropped", blob["n_dropped"])
-    return {k: v.reshape((B, -1) + v.shape[1:]) for k, v in blob.items() if k in PAGE_KEYS}
+    return lead_blob(blob, (B, -1), PAGE_KEYS)
 
 
 def _decompress_all(spec: KVSpec, pages: dict[str, torch.Tensor], table: TableLike) -> torch.Tensor:
     """page slots (B, n, ...) -> (B, n * page_words / (Kv*hd), Kv, hd) bf16;
     one decode launch."""
-    B, n = pages["n_out"].shape
-    flat = {k: v.reshape((B * n,) + v.shape[2:]).contiguous() for k, v in pages.items()}
-    words = ops.decode_pages(flat, table, spec.fr)
-    return words_to_bf16(words).reshape(B, -1, spec.n_kv, spec.head_dim)
+    words = ops.decode_pages(flat_blob(pages), table, spec.fr)
+    return words_to_bf16(words).reshape(pages["n_out"].shape[0], -1, spec.n_kv, spec.head_dim)
 
 
 def _store_pages(spec: KVSpec, cache: Cache, side: str, first_page: int, rows: torch.Tensor) -> None:
@@ -394,12 +388,8 @@ def _attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
         tail_valid = tok <= pos
         if spec.window:
             tail_valid &= tok > pos - spec.window
-        lg = torch.einsum("bkgh,btkh->bkgt", qg, Kt) * inv_sqrt(hd, qg.device)
-        lg = torch.where(tail_valid, lg, MASKED)
-        m2 = lg.max(dim=-1).values
-        p2 = torch.where(lg <= MASKED_GUARD, 0.0, torch.exp(lg - m2[..., None]))
-        acc2 = torch.einsum("bkgt,btkh->bkgh", p2, Vt)
-        accm, _, lm = merge_softmax(acc, m, l, acc2, m2, p2.sum(dim=-1))
+        tail = softmax_chunk(qg, Kt, Vt, tail_valid, inv_sqrt(hd, qg.device))
+        accm, _, lm = merge_softmax(acc, m, l, *tail)
         out = accm / lm[..., None]
         return out.reshape(B, 1, H * hd).to(cache["k_tail"].dtype)
 

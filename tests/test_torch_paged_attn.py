@@ -6,6 +6,7 @@ the hand-written kernel and hold it against the plain version on the card.
 The JAX reference is imported inside the tests that need it, so the card
 tests also run where JAX is absent.
 """
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -153,11 +154,16 @@ def test_plain_matches_pallas_interpret(ref, geom):
 
 def test_plain_scale_is_float32_inv_sqrt():
     """The plain path scales its scores by 1/sqrt(hd) formed in float32, as
-    the reference and the kernel do: with one key of 1.0 on channel 0 and a
-    query of 1.0 there, the running max m is that scale, bit for bit, for
-    every head dim 1..512 (a double 1/sqrt rounded to float32 misses at 151
-    of them)."""
-    for hd in range(1, 513):
+    the reference and the kernel do, and takes it from ``inv_sqrt``: that
+    helper is held bit for bit at every head dim 1..512 (a double 1/sqrt
+    rounded to float32 misses at 151 of them).  With one key of 1.0 on
+    channel 0 and a query of 1.0 there, the plain path's running max m is
+    that scale, bit for bit, at every head dim where the double misses and a
+    page of lcm(hd, 128) words is at most 4,096 words, and at 64 and 128."""
+    misses = [hd for hd in range(1, 513)
+              if np.float32(1 / math.sqrt(hd)) != np.float32(1) / np.sqrt(np.float32(hd))]
+    assert len(misses) == 151
+    for hd in [hd for hd in misses if np.lcm(hd, 128) <= 4096] + [64, 128]:
         want = np.float32(1) / np.sqrt(np.float32(hd))
         pw = int(np.lcm(hd, 128))
         cfg = tfr.FRConfig(word_bits=16, page_words=pw, num_bases=1, width_set=(8,),

@@ -280,6 +280,57 @@ def test_init_compressed_matches_reference(ref, name):
     assert got["k_tail"].data_ptr() != got["v_tail"].data_ptr()   # updated in place
 
 
+@pytest.mark.parametrize("fr", [tkv.KV_FR, tfr.FRConfig(**FR_ADAPTIVE)], ids=["kv-fr", "adaptive"])
+def test_blob_layout_is_the_encode_and_the_cache(fr):
+    """The one blob layout of ``core/gbdi_fr.py``: its fields and trailing
+    shapes are what ``fr_encode`` returns, in order; a full and a window
+    cache's page dicts are its page fields at ``(batch, slots)``; flattening
+    and restoring the leading dims round-trips; and the checked pointer list
+    gives the fields' pointers in that order (0 for a single-profile
+    config's ``profile``) and refuses a field of the wrong shape."""
+    k = fr.num_bases
+    table = interop.table_from_numpy(np.arange(k) * 37, [fr.width_set[-1]] * k, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 1 << 16, (3, fr.page_words), generator=gen, dtype=torch.int32)
+    blob = {f: t.contiguous() for f, t in tfr.fr_encode(x, table, fr).items()}
+    want = tfr.blob_shapes(fr, counts=True)
+    assert list(blob) == list(want)
+    assert {f: (t.dtype, tuple(t.shape)) for f, t in blob.items()} == \
+        {f: (torch.int32, (3,) + shape) for f, shape in want.items()}
+    pages = tfr.blob_shapes(fr)
+    assert list(pages) == [f for f in tkv.PAGE_KEYS if f in want]
+    assert ("profile" in pages) == (fr.num_profiles > 1)
+
+    hd = fr.page_words // 4                       # page_tokens 4
+    for spec in (tkv.KVSpec(n_kv=1, head_dim=hd, max_len=32, fr=fr),
+                 tkv.KVSpec(n_kv=1, head_dim=hd, max_len=32, fr=fr, window=9)):
+        cache = tkv.init_compressed(spec, B, table, device="cpu")
+        for side in ("k_pages", "v_pages"):
+            assert list(cache[side]) == list(pages)
+            for f, shape in pages.items():
+                t = cache[side][f]
+                assert t.dtype == torch.int32 and not t.any()
+                assert tuple(t.shape) == (B, spec.n_pages * spec.pages_per_row) + shape
+
+    lead = tfr.lead_blob(blob, (3, 1))
+    assert all(tuple(lead[f].shape) == (3, 1) + shape for f, shape in want.items())
+    flat = tfr.flat_blob(lead)
+    assert list(flat) == list(want) and all(torch.equal(flat[f], blob[f]) for f in want)
+    assert list(tfr.lead_blob(flat, (3,), tkv.PAGE_KEYS)) == list(pages)
+
+    tail = [] if fr.num_profiles > 1 else [0]
+    assert t_enc.blob_ptrs(blob, fr, (3,), counts=True) == \
+        [blob[f].data_ptr() for f in want] + tail
+    assert t_enc.blob_ptrs(blob, fr, (3,)) == [blob[f].data_ptr() for f in pages] + tail
+    with pytest.raises(ValueError, match="shape"):
+        t_enc.blob_ptrs(blob, fr, (4,))
+    for f in pages:
+        bad = dict(blob, **{f: torch.zeros(blob[f].shape[:1] + (1,) * blob[f].dim(),
+                                           dtype=torch.int32)})
+        with pytest.raises(ValueError, match=f"k {f} must be"):
+            t_enc.blob_ptrs(bad, fr, (3,), side="k ")
+
+
 @pytest.mark.parametrize("name", list(GEOMS))
 def test_resident_seed_is_the_decoded_zero_tree(ref, name):
     d = setup(ref, name, resident=True)
