@@ -49,7 +49,13 @@ Phases, in order; any failure exits non-zero before the final line:
    at contexts of 4,096 and 32,768; (b) the ring instantiation of the
    paged-attention kernel (a sliding-window layer) at :data:`RING`, against
    its plain version at each position, launches counted, and timed as above
-   beside its plain version and SDPA (:func:`ring_attention`).  Phases 5, 7
+   beside its plain version and SDPA (:func:`ring_attention`); in both 7
+   (at :data:`CELL`, a full layer of the mixtral decode cell) and 7 (b), the
+   kernel's tail form (the raw tail merged in C's merge kernel) against
+   its plain version and against unfused C followed by the eager tail
+   merge, within one bf16 ulp (a dropped or mis-masked tail shown to miss
+   by more), its launches counted, and timed against the unfused pair with
+   the host included (:func:`tail_form`).  Phases 5, 7
    and 7 (b) also hold ``launches.attn_sliced`` to the rule of
    ``gbdi_paged_attn.token_slices``: a sliced launch where a shape takes more
    than one token slice (7 (b), the decode cells' G 6), none at the serving
@@ -200,6 +206,11 @@ SERVE = {"batch": 8, "n_kv": 8, "hd": 128, "heads": 128, "max_len": 32768, "pref
 #: ring has wrapped nearly four times (the times at the last)
 RING = {"batch": 128, "n_kv": 1, "hd": 128, "groups": 6, "window": 4096,
         "positions": (3207, 16320, 16383, 16360)}
+#: phase 7: kernel C's tail form at a full layer of the benchmark cell
+#: mixtral-8x22b.decode-32k (one chip's share: 1 KV head of 128, 6 query
+#: heads, 16-token pages), batch 32 over 2,048 page slots, at a position whose
+#: tail holds 9 tokens
+CELL = {"batch": 32, "n_kv": 1, "hd": 128, "groups": 6, "slots": 2048, "pos": 32760}
 SEED = 12
 
 
@@ -306,6 +317,148 @@ def attn_errors(acc, m, l, pacc, pm, pl) -> dict:
             "l": float(((l - pl).abs() / pl)[live].max()) if live.any() else 0.0}
 
 
+def bf16_ulps(got, want):
+    """``|got - want|`` elementwise in bf16 ulps of ``max(1, |want|)``: the
+    resolution at which the benchmark's ``attn_gap`` (``|d| / max(1, |ref|)``)
+    reads an output, so a rounding flip counts one and a near-zero output's
+    float32 noise counts next to nothing."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1))) - 7)
+    return (got.float() - w).abs() / ulp
+
+
+def tail_launches() -> int:
+    """Kernel C launches counted so far whose merge took the raw tail."""
+    from repro_torch import obs
+
+    return obs.snapshot(spans=False)["counters"]["launches.attn_tail"]
+
+
+def cell_pages(card, batch: int, n_kv: int, hd: int, n_slots: int, seed: int):
+    """(ks, vs, pk, pv, table, gen): seeded channel-structured bf16 K/V of
+    ``n_slots`` pages a row (phase 5's structure), the table fitted to the
+    first row's first 32 tokens, the page slots kernel A encodes, and the
+    generator, for the queries."""
+    import torch
+
+    from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
+    from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg = kvc.KV_FR
+    pt = cfg.page_words // (n_kv * hd)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    means = torch.randn(1, 1, n_kv, hd, generator=gen, device=card) * 2
+
+    def tokens():     # (batch, n_slots * pt, n_kv, hd)
+        noise = torch.randn(batch, n_slots * pt, n_kv, hd, generator=gen, device=card)
+        return (means + 0.1 * noise).to(torch.bfloat16)
+
+    ks, vs = tokens(), tokens()
+    table = fit_fr_bases(bf16_to_words(torch.cat([ks[0, :32].reshape(-1),
+                                                  vs[0, :32].reshape(-1)])), cfg)
+
+    def slots(x):
+        words = bf16_to_words(x).reshape(-1, cfg.page_words).contiguous()
+        return {k: v.reshape((batch, n_slots) + v.shape[1:])
+                for k, v in enc_mod.gbdi_encode(words, table, cfg).items()
+                if k not in ("n_spilled", "n_dropped")}
+
+    return ks, vs, slots(ks), slots(vs), table, gen
+
+
+def tail_form(card, event_ms, label: str, q, pk, pv, table, pos: int, geom: dict, gen) -> dict:
+    """Phases 7 and 7 (b): kernel C's tail form (``paged_attention_decode_tail``:
+    the raw tail ring scored and merged in C's merge kernel, bf16 out) at
+    ``pos``, over a seeded tail ring of independent ``2 * randn`` K and V rows
+    (so the tail carries weight beside the pages), held within one bf16 ulp
+    against its plain version (``paged_attention_decode_tail_plain``) and
+    against unfused C followed by the eager tail merge.  The check is shown
+    to bite: the output with the tail dropped, and those with the tail's mask
+    ending one position early or late, each miss the plain version by more
+    than an ulp.  One ``launches.attn_tail`` a tail-form call and none for C
+    alone; then both timed in turns with the host included (CUDA events
+    around the call on an idle card), median and min of ``TIMING_REPEATS``.
+    Returns the times and the launches of C and of its tail form, counted
+    over all of the above."""
+    import torch
+
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg, window = kvc.KV_FR, geom.get("window", 0)
+    B, n_kv, hd = q.shape[0], geom["n_kv"], geom["hd"]
+    pt = pa_mod.page_tokens(cfg, n_kv, hd)
+    if not 0 < pos % pt < pt - 1:
+        raise ValueError(f"[{label}] pos {pos} leaves no room to shift the tail's mask in page")
+    kt, vt = ((2 * torch.randn(B, pt, n_kv, hd, generator=gen, device=card)).to(torch.bfloat16)
+              for _ in "kv")
+    c0, t0 = launch_counts("gbdi_paged_attn")["gbdi_paged_attn"], tail_launches()
+
+    def fused():
+        return pa_mod.paged_attention_decode_tail(q, pk, pv, table, pos, cfg, k_tail=kt,
+                                                  v_tail=vt, **geom)
+
+    def unfused():
+        state = pa_mod.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+        return pa_mod.tail_merge(q, state, kt, vt, pos, window=window)
+
+    got = fused()
+    if tail_launches() != t0 + 1:
+        raise AssertionError(f"[{label}] the tail form counted {tail_launches() - t0} tail launches")
+    acc, m, l = state = pa_mod.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+    unf = pa_mod.tail_merge(q, state, kt, vt, pos, window=window)
+    if tail_launches() != t0 + 1:
+        raise AssertionError(f"[{label}] C alone counted a tail launch")
+    want = pa_mod.paged_attention_decode_tail_plain(q, pk, pv, table, pos, cfg, k_tail=kt,
+                                                    v_tail=vt, **geom)
+    ulps = {"plain": float(bf16_ulps(got, want).max()), "unfused": float(bf16_ulps(got, unf).max())}
+    rel = float(((got.float() - want.float()).abs() / want.float().abs().clamp(min=1)).max())
+    if max(ulps.values()) > 1 or not got.isfinite().all():
+        raise AssertionError(f"[{label}] tail form vs plain and vs unfused C + eager merge: "
+                             f"{ulps} bf16 ulps")
+    wrong = {"tail dropped": (acc / l[..., None]).to(torch.bfloat16),
+             **{f"mask to {pos + d}": pa_mod.tail_merge(q, state, kt, vt, pos + d, window=window)
+                for d in (-1, 1)}}
+    misses = {k: float(bf16_ulps(w, want).max()) for k, w in wrong.items()}
+    if min(misses.values()) <= 1:
+        raise AssertionError(f"[{label}] a wrong tail passes the one-ulp check: {misses} ulps")
+    times = {"fused": [], "unfused": []}
+    fused(), unfused()
+    for _ in range(TIMING_REPEATS):
+        for name, fn in (("fused", fused), ("unfused", unfused)):
+            times[name].append(event_ms(fn))
+    launches = launch_counts("gbdi_paged_attn")["gbdi_paged_attn"] - c0
+    tails = tail_launches() - t0
+    if tails != TIMING_REPEATS + 2:
+        raise AssertionError(f"[{label}] {tails} tail launches for {TIMING_REPEATS + 2} calls")
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    low = {k: min(v) for k, v in times.items()}
+    log(f"[{label}] tail form at pos {pos} ({geom}): {med['fused']:.4f} ms (median of "
+        f"{TIMING_REPEATS}, min {low['fused']:.4f}) against unfused C + the eager tail merge "
+        f"{med['unfused']:.4f} ms (min {low['unfused']:.4f}), host included; outputs within "
+        f"{ulps} bf16 ulp of plain / unfused (widest |d| / max(1, |out|) from plain {rel:.3g}); "
+        f"wrong tails miss by {misses} ulps; {launches} launches of C, {tails} in the tail form "
+        f"({card_tag(card)})")
+    return {"ms": med["fused"], "min_ms": low["fused"], "unfused_ms": med["unfused"],
+            "unfused_min_ms": low["unfused"], "ulps": ulps["plain"], "launches": launches,
+            "tail_launches": tails}
+
+
+def cell_tail_form(card, event_ms, batch: int = CELL["batch"]) -> dict:
+    """Phase 7: :func:`tail_form` at :data:`CELL`, a full layer of the mixtral
+    decode cell."""
+    import torch
+
+    n_kv, hd, G = CELL["n_kv"], CELL["hd"], CELL["groups"]
+    _, _, pk, pv, table, gen = cell_pages(card, batch, n_kv, hd, CELL["slots"], SEED + 4)
+    q = torch.randn(batch, n_kv, G, hd, generator=gen, device=card) * 4
+    return tail_form(card, event_ms, "7", q, pk, pv, table, CELL["pos"],
+                     dict(n_kv=n_kv, hd=hd, groups=G), gen)
+
+
 def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> dict:
     """Phase 7 (b): kernel C's ring instantiation (``window`` > 0) over a
     ring of ``ceil(window / page_tokens)`` slots of seeded channel-structured
@@ -315,11 +468,10 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
     pages holding tokens of ``[lo, cur * pt)``, q and the state; operations
     as phase 7 over those tokens), its plain version's time and, as the
     library yardstick, SDPA over as many tokens held raw.  Returns the
-    ``kernels`` line's fields, launches included."""
+    ``kernels`` line's fields, launches included.  Last, the tail form at
+    that position (:func:`tail_form`), its launches counted in the row."""
     import torch
 
-    from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
-    from repro_torch.kernels import gbdi_encode as enc_mod
     from repro_torch.kernels import gbdi_paged_attn as pa_mod
     from repro_torch.serving import kv_cache as kvc
 
@@ -328,24 +480,7 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
     geom = dict(n_kv=n_kv, hd=hd, groups=G, window=W)
     pt = pa_mod.page_tokens(cfg, n_kv, hd)
     R, H = -(-W // pt), n_kv * G
-    gen = torch.Generator(device=card).manual_seed(SEED + 3)
-    means = torch.randn(1, 1, n_kv, hd, generator=gen, device=card) * 2
-
-    def tokens():     # (batch, R * pt, n_kv, hd), phase 5's channel structure
-        noise = torch.randn(batch, R * pt, n_kv, hd, generator=gen, device=card)
-        return (means + 0.1 * noise).to(torch.bfloat16)
-
-    ks, vs = tokens(), tokens()
-    table = fit_fr_bases(bf16_to_words(torch.cat([ks[0, :32].reshape(-1),
-                                                  vs[0, :32].reshape(-1)])), cfg)
-
-    def slots(x):
-        words = bf16_to_words(x).reshape(-1, cfg.page_words).contiguous()
-        return {k: v.reshape((batch, R) + v.shape[1:])
-                for k, v in enc_mod.gbdi_encode(words, table, cfg).items()
-                if k not in ("n_spilled", "n_dropped")}
-
-    pk, pv = slots(ks), slots(vs)
+    ks, vs, pk, pv, table, gen = cell_pages(card, batch, n_kv, hd, R, SEED + 3)
     q = torch.randn(batch, n_kv, G, hd, generator=gen, device=card) * 4
 
     def attend():
@@ -399,9 +534,10 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
     ts = pa_mod.token_slices(H, hd, pa_mod.pass_slots(cfg, n_kv=n_kv, hd=hd, groups=G) * pt)
     if sliced != (launches if ts > 1 else 0):
         raise AssertionError(f"[7b] {sliced} of {launches} launches sliced at {ts} token slices")
+    tail = tail_form(card, event_ms, "7b", q, pk, pv, table, pos, geom, gen)
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
-           "launches": launches, "max_abs_err": errs["out"]}
+           "launches": launches + tail["launches"], "max_abs_err": errs["out"]}
     log(f"[7b] ring instantiation at B={batch} Kv={n_kv} G={G} hd={hd}, window {W} in {R} "
         f"slots, pos {pos} ({n_pages} pages, {T} tokens): {ms:.4f} ms (median of "
         f"{TIMING_REPEATS}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} (bytes "
@@ -2334,7 +2470,7 @@ def main() -> int:
         return 0
     import numpy as np
 
-    from repro_torch import interop
+    from repro_torch import interop, obs
     from repro_torch.core.format_doc import serialize_page
     from repro_torch.core.gbdi_fr import FRConfig, bf16_to_words, fit_fr_bases
     from repro_torch.eval import run as eval_run
@@ -2705,8 +2841,10 @@ def main() -> int:
         f"({kv16.compressed_bytes_per_page()} B per page, {spec.n_pages} pages per sequence, "
         f"K and V), raw {spec.raw_bytes(B)} B, resident spec {res_spec.compressed_bytes(B)} B")
     reset_launches("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
-    sessions, outs, step_ms = {}, {}, {}
+    obs.reset("launches.attn_tail")
+    sessions, outs, step_ms, attn_launches = {}, {}, {}, {}
     for label, sp in (("paged", spec), ("resident", res_spec)):
+        attn0 = (launch_counts("gbdi_paged_attn")["gbdi_paged_attn"], tail_launches())
         sync()
         t0 = time.perf_counter()
         sess = KVSession(sp, B, table)
@@ -2721,11 +2859,17 @@ def main() -> int:
             step_ms[label].append((time.perf_counter() - t0) * 1e3)
             outs[label].append(out)
         sessions[label] = sess
+        attn_launches[label] = (launch_counts("gbdi_paged_attn")["gbdi_paged_attn"] - attn0[0],
+                                tail_launches() - attn0[1])
         log(f"[6] {label}: init + prefill of {T} tokens {fill_s:.3f} s; {steps} steps at "
             f"positions {T}..{T + steps - 1}: " + ", ".join(f"{t:.3f}" for t in step_ms[label])
             + " ms (host clock, synchronised)")
     serve_launches = launch_counts("gbdi_encode", "gbdi_decode", "gbdi_paged_attn")
-    log(f"[6] serving-path launches: {serve_launches}")
+    log(f"[6] serving-path launches: {serve_launches}; kernel C's (launches, of those in the "
+        f"tail form) by session: {attn_launches}")
+    if attn_launches["paged"][1] != attn_launches["paged"][0]:
+        raise AssertionError(f"[6] the paged session's attention left the tail form: "
+                             f"{attn_launches['paged']} (C launches, tail-form launches)")
     for kname, count in serve_launches.items():
         if count <= 0:
             raise AssertionError(f"{kname} was never launched on the serving path")
@@ -2824,6 +2968,8 @@ def main() -> int:
             del sess
             torch.cuda.empty_cache()
     ring_row = ring_attention(dev, event_ms, peak)
+    torch.cuda.empty_cache()
+    cell_tail_form(dev, event_ms)
     torch.cuda.empty_cache()
 
     # -- phase 8: the paper's suite on the card ---------------------------------

@@ -8,8 +8,11 @@
 // (acc, m, l) in float32 over the FULL pages of the cache: tokens at or past
 // (pos / pt) * pt are masked, and the caller attends over the raw tail and
 // merges the two streams with merge_softmax.  The plain version is
-// repro_torch.kernels.gbdi_paged_attn.paged_attention_decode_plain.  Only
-// 16-bit (bf16) word configs are served; the wrapper raises for others.
+// repro_torch.kernels.gbdi_paged_attn.paged_attention_decode_plain.  Its
+// tail form (gbdi_paged_attn_tail_launch) does the caller's part too: the
+// split merge also scores the raw tail ring, folds it in and writes the
+// normalised output in bf16 (plain version: paged_attention_decode_tail_plain).
+// Only 16-bit (bf16) word configs are served; the wrapper raises for others.
 //
 // Bound: bytes and operations about evenly.  Each K and V page blob is
 // read once (3,588 B of int32 lanes for the default KV page of 2,048 bf16
@@ -84,7 +87,11 @@
 // run in no order, so each writes its partial (acc, m, l); kernel 2 merges
 // the splits with the merge_softmax identity.  Masking uses -1e30 and p = 0
 // where a score is <= -1e29, so an empty run merges as (acc, m, l) =
-// (0, -1e30, 0).
+// (0, -1e30, 0).  In the tail form kernel 2 also scores the row's raw tail
+// (the tokens of page pos / pt at positions in [lo, pos], held as bf16 in
+// the tail ring (B, pt, n_kv, hd)), folds those scores into the same max and
+// sums, and writes acc / l as bf16 (B, n_kv, groups, hd) in place of the
+// state: one launch pair a layer where the caller ran a dozen eager ops.
 //
 // What holds it back now (PERF.md): both steps are latency-bound at 16
 // warps an SM.  With the attention in token slices every warp attends at
@@ -128,13 +135,18 @@ struct AttnArgs {
   float* part_acc;  // (B, splits, n_kv * groups, hd)
   float* part_m;    // (B, splits, n_kv * groups)
   float* part_l;
-  float* acc;  // (B, n_kv, groups, hd)
+  float* acc;  // (B, n_kv, groups, hd); the state form only
   float* m;    // (B, n_kv, groups)
   float* l;
+  const unsigned short* k_tail;  // the tail form only: (B, pt, n_kv, hd) bf16 bits
+  const unsigned short* v_tail;
+  unsigned short* out;           // the tail form only: (B, n_kv, groups, hd) bf16 bits
   short* out_k;  // decode_pages only: (B, n_valid, P) bf16 bits
   short* out_v;
   int B, S, n_valid, splits, run, n_kv, groups, hd, pt, N;
-  int ring_cur, ring_lo;  // ring mode only: pos / pt and pos - window + 1
+  // ring mode and the tail form: pos / pt and the first position that counts
+  // (pos - window + 1; 0 for a full layer); the tail form: the query's position
+  int cur, lo, pos;
   int ts;                 // token slices of the attention step: token_slices, by unpack_params
 };
 
@@ -694,9 +706,9 @@ __device__ __forceinline__ int tile_token(int lane) {
 __device__ __forceinline__ bool ring_live(const AttnArgs& a, int s0, int tt, int T) {
   if (tt >= T) return false;
   const int k = tt / a.pt, slot = s0 + k;
-  const int page = a.ring_cur - 1 - (a.ring_cur - 1 - slot) % a.S;
+  const int page = a.cur - 1 - (a.cur - 1 - slot) % a.S;
   const int p = page * a.pt + tt - k * a.pt;
-  return p >= a.ring_lo && p < a.ring_cur * a.pt;
+  return p >= a.lo && p < a.cur * a.pt;
 }
 
 // The online softmax of NR consecutive rows (from rl, of the block's chunk)
@@ -944,29 +956,73 @@ __global__ void __launch_bounds__(kAttnThreads, 1) decode_pages_kernel(AttnArgs 
   });
 }
 
+// a float32 as bf16 bits, rounded to nearest even (NaN to the quiet 0x7FC0),
+// as torch's .to(torch.bfloat16) rounds it
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  const unsigned u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FC0;
+  return static_cast<unsigned short>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
 // One block per (batch row, kv, group): the merge_softmax identity over the
 // row's splits.  All-masked splits carry (0, -1e30, 0), so a row with no
 // valid token ends as m = -1e30, l = 0, acc = 0 exactly.
+// TAIL: the row's query also scores the raw tail's pt tokens (one warp a
+// token, a butterfly sum over the channels, the scale of attn_kernel), the
+// tokens outside [lo, pos] masked to -1e30 and weighing 0 under the same
+// guard; one max, one sum and one acc take the splits and the tail together,
+// and the block writes acc / l as bf16 (dynamic shared memory: pt floats).
+template <bool TAIL>
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(AttnArgs a) {
+  extern __shared__ float tail_p[];  // TAIL: the tail's scores, then its weights
   const int kg = a.n_kv * a.groups;
-  const int r = blockIdx.x, b = r / kg, hg = r - b * kg;
+  const int r = blockIdx.x, b = r / kg, hg = r - b * kg, kv = hg / a.groups;
   const size_t first = static_cast<size_t>(b) * a.splits;
+  const size_t tail_row = static_cast<size_t>(a.n_kv) * a.hd;  // a tail token's words
+  const size_t tail0 = static_cast<size_t>(b) * a.pt * tail_row + static_cast<size_t>(kv) * a.hd;
   float m = kMasked;
   for (int sp = 0; sp < a.splits; ++sp) m = fmaxf(m, a.part_m[(first + sp) * kg + hg]);
+  if constexpr (TAIL) {
+    const int lane = threadIdx.x & 31;
+    const float* q = a.q + static_cast<size_t>(r) * a.hd;
+    const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));
+    for (int t = threadIdx.x >> 5; t < a.pt; t += kMergeThreads / 32) {
+      const unsigned short* k = a.k_tail + tail0 + t * tail_row;
+      float dot = 0.f;
+      for (int h = lane; h < a.hd; h += 32) dot = fmaf(q[h], bf16_word(k[h]), dot);
+      for (int o = 16; o; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+      const int p = a.cur * a.pt + t;
+      if (lane == 0) tail_p[t] = p >= a.lo && p <= a.pos ? dot * scale : kMasked;
+    }
+    __syncthreads();
+    for (int t = 0; t < a.pt; ++t) m = fmaxf(m, tail_p[t]);
+    __syncthreads();  // every thread has the max before the scores become weights
+    for (int t = threadIdx.x; t < a.pt; t += blockDim.x)
+      tail_p[t] = tail_p[t] <= kMaskedGuard ? 0.f : expf(tail_p[t] - m);
+    __syncthreads();
+  }
   float l = 0.f;
   for (int sp = 0; sp < a.splits; ++sp) {
     const size_t j = (first + sp) * kg + hg;
     l += a.part_l[j] * expf(a.part_m[j] - m);
   }
+  if constexpr (TAIL)
+    for (int t = 0; t < a.pt; ++t) l += tail_p[t];
   for (int h = threadIdx.x; h < a.hd; h += blockDim.x) {
     float acc = 0.f;
     for (int sp = 0; sp < a.splits; ++sp) {
       const size_t j = (first + sp) * kg + hg;
       acc += a.part_acc[j * a.hd + h] * expf(a.part_m[j] - m);
     }
-    a.acc[static_cast<size_t>(r) * a.hd + h] = acc;
+    if constexpr (TAIL) {
+      const unsigned short* v = a.v_tail + tail0 + h;
+      for (int t = 0; t < a.pt; ++t) acc = fmaf(tail_p[t], bf16_word(v[t * tail_row]), acc);
+      a.out[static_cast<size_t>(r) * a.hd + h] = bf16_bits(acc / l);
+    } else {
+      a.acc[static_cast<size_t>(r) * a.hd + h] = acc;
+    }
   }
-  if (threadIdx.x == 0) {
+  if (!TAIL && threadIdx.x == 0) {
     a.m[r] = m;
     a.l[r] = l;
   }
@@ -1003,8 +1059,9 @@ AttnArgs unpack_params(const int* ip) {
 }
 
 // ptrs: q, K blob (ptrs, deltas, out_vals, out_idx, n_out, profile), V blob
-//       (the same six), bases, cls, meta, part_acc, part_m, part_l, acc, m, l
-AttnArgs unpack(const long long* ptr, const int* ip) {
+//       (the same six), bases, cls, meta, part_acc, part_m, part_l, then acc,
+//       m, l (the state form) or k_tail, v_tail, out (the tail form)
+AttnArgs unpack(const long long* ptr, const int* ip, bool tail = false) {
   AttnArgs a = unpack_params(ip);
   a.q = reinterpret_cast<const float*>(ptr[0]);
   a.k = blob_ptrs(ptr + 1);
@@ -1015,9 +1072,15 @@ AttnArgs unpack(const long long* ptr, const int* ip) {
   a.part_acc = reinterpret_cast<float*>(ptr[16]);
   a.part_m = reinterpret_cast<float*>(ptr[17]);
   a.part_l = reinterpret_cast<float*>(ptr[18]);
-  a.acc = reinterpret_cast<float*>(ptr[19]);
-  a.m = reinterpret_cast<float*>(ptr[20]);
-  a.l = reinterpret_cast<float*>(ptr[21]);
+  if (tail) {
+    a.k_tail = reinterpret_cast<const unsigned short*>(ptr[19]);
+    a.v_tail = reinterpret_cast<const unsigned short*>(ptr[20]);
+    a.out = reinterpret_cast<unsigned short*>(ptr[21]);
+  } else {
+    a.acc = reinterpret_cast<float*>(ptr[19]);
+    a.m = reinterpret_cast<float*>(ptr[20]);
+    a.l = reinterpret_cast<float*>(ptr[21]);
+  }
   return a;
 }
 
@@ -1087,7 +1150,12 @@ int launch(const AttnArgs& a, const int* ip, void* stream) {
   k<<<dim3(a.splits, a.B, z_chunks(a)), kAttnThreads, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  merge_kernel<<<a.B * a.n_kv * a.groups, kMergeThreads, 0, st>>>(a);
+  const int rows = a.B * a.n_kv * a.groups;
+  if (a.out) {
+    merge_kernel<true><<<rows, kMergeThreads, sizeof(float) * a.pt, st>>>(a);
+  } else {
+    merge_kernel<false><<<rows, kMergeThreads, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1115,9 +1183,23 @@ extern "C" int gbdi_paged_attn_launch(const long long* ptr, const int* ip, void*
 extern "C" int gbdi_paged_attn_ring_launch(const long long* ptr, const int* ip, const int* ring,
                                            void* stream) {
   AttnArgs a = unpack(ptr, ip);
-  a.ring_cur = ring[0];
-  a.ring_lo = ring[1];
+  a.cur = ring[0];
+  a.lo = ring[1];
   return launch<true>(a, ip, stream);
+}
+
+// The tail form: ptrs as gbdi_paged_attn_launch with k_tail, v_tail and out
+// in place of acc, m and l; tail = {pos, lo, ring}: the query's position, the
+// first position that counts (0 for a full layer) and 1 where the S slots are
+// a window's ring (n_valid is then min(S, pos / pt)).  Returns as
+// gbdi_paged_attn_launch.
+extern "C" int gbdi_paged_attn_tail_launch(const long long* ptr, const int* ip, const int* tail,
+                                           void* stream) {
+  AttnArgs a = unpack(ptr, ip, true);
+  a.pos = tail[0];
+  a.lo = tail[1];
+  a.cur = a.pt > 0 ? a.pos / a.pt : 0;
+  return tail[2] ? launch<true>(a, ip, stream) : launch<false>(a, ip, stream);
 }
 
 // The batched pass decode alone: words of page slots [0, n_valid).

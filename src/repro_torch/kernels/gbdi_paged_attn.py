@@ -26,6 +26,14 @@ decodes); on the card a :class:`LaunchPlan` adds the grid.
 :func:`decode_pages` exposes that batched decode alone, so it can be held
 bit for bit against the decode kernel.
 
+:func:`paged_attention_decode_tail` is the whole of a decode step's
+attention: the pages' state, then the raw tail ring (the current partial
+page) attended and merged in, normalised, in bf16.  On the card the
+kernel's split merge does the tail's part in the same launch pair (counted
+in ``launches.attn_tail`` too); on the CPU, :func:`paged_attention_decode`
+runs and then :func:`tail_merge`, the eager merge, in the span
+``kv_cache.tail_merge``.
+
 With ``window=W > 0`` the page slots are a sliding window's ring (a layer
 of a window/full hybrid, :class:`~repro_torch.serving.kv_cache.KVSpec`'s
 ``window``): page ``p`` lives in slot ``p % S``, and the state covers the
@@ -277,6 +285,31 @@ def softmax_chunk(
     return torch.einsum("bkgt,btkh->bkgh", p, V), m, p.sum(dim=-1)
 
 
+def tail_merge(
+    q: torch.Tensor, state: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    k_tail: torch.Tensor, v_tail: torch.Tensor, pos: int, *, window: int = 0,
+    merge=merge_softmax,
+) -> torch.Tensor:
+    """The pages' ``state (acc, m, l)`` with the raw tail merged in, eagerly:
+    ``q (B, Kv, G, hd)`` float32 attends in float32 over the tail ring
+    ``k_tail``/``v_tail (B, pt, Kv, hd)``, whose token ``t`` is position
+    ``(pos // pt) * pt + t``, masked outside ``[pos - window + 1, pos]``
+    (``[0, pos]`` where ``window`` is 0); ``merge`` folds the two streams,
+    and the result, divided by its sum, comes back ``(B, Kv, G, hd)`` in the
+    tail's dtype.  Recorded as the span ``kv_cache.tail_merge``."""
+    acc, m, l = state
+    with obs.span("kv_cache.tail_merge"):
+        pt = k_tail.shape[1]
+        Kt, Vt = k_tail.float(), v_tail.float()
+        tok = (pos // pt) * pt + torch.arange(pt, device=q.device)
+        tail_valid = tok <= pos
+        if window:
+            tail_valid &= tok > pos - window
+        tail = softmax_chunk(q, Kt, Vt, tail_valid, inv_sqrt(q.shape[-1], q.device))
+        accm, _, lm = merge(acc, m, l, *tail)
+        return (accm / lm[..., None]).to(k_tail.dtype)
+
+
 def ring_bounds(S: int, pos: int, pt: int, window: int) -> tuple[int, int, int]:
     """``(n_valid, cur, lo)`` of a call over ``S`` page slots at ``pos``:
     the slots read, ``[0, n_valid)``; the current page, ``cur = pos // pt``,
@@ -345,6 +378,20 @@ def paged_attention_decode_plain(
     return acc, m, l
 
 
+def paged_attention_decode_tail_plain(
+    q: torch.Tensor,
+    pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
+    table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, k_tail: torch.Tensor,
+    v_tail: torch.Tensor, n_kv: int, hd: int, groups: int, window: int = 0,
+) -> torch.Tensor:
+    """:func:`paged_attention_decode_tail`'s plain version: the plain pages'
+    state (:func:`paged_attention_decode_plain`), then :func:`tail_merge`."""
+    qf = q.reshape(q.shape[0], n_kv, groups, hd).float()
+    state = paged_attention_decode_plain(qf, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
+                                         groups=groups, window=window)
+    return tail_merge(qf, state, k_tail, v_tail, pos, window=window)
+
+
 def attn_iparams(cfg: FRConfig, *, n_kv: int, hd: int, groups: int, batch: int = 1,
                  n_slots: int = 1, n_valid: int = 1, splits: int = 1, run: int = 1,
                  pass_n: int | None = None) -> list[int]:
@@ -387,8 +434,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     launch = lib.gbdi_paged_attn_launch.argtypes
-    lib.gbdi_paged_attn_ring_launch.argtypes = [*launch[:2], ctypes.POINTER(ctypes.c_int), launch[2]]
-    lib.gbdi_paged_attn_ring_launch.restype = ctypes.c_int
+    for fn in (lib.gbdi_paged_attn_ring_launch, lib.gbdi_paged_attn_tail_launch):
+        fn.argtypes = [*launch[:2], ctypes.POINTER(ctypes.c_int), launch[2]]
+        fn.restype = ctypes.c_int
     lib.gbdi_paged_attn_decode_launch.argtypes = lib.gbdi_paged_attn_launch.argtypes
     lib.gbdi_paged_attn_decode_launch.restype = ctypes.c_int
     return lib
@@ -470,12 +518,40 @@ def paged_attention_decode(
                                         n_kv=n_kv, hd=hd, groups=groups, window=window)
 
 
+def paged_attention_decode_tail(
+    q: torch.Tensor,
+    pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
+    table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, k_tail: torch.Tensor,
+    v_tail: torch.Tensor, n_kv: int, hd: int, groups: int, window: int = 0,
+    merge=merge_softmax,
+) -> torch.Tensor:
+    """Attention of ``q (B, Kv, G, hd)`` at ``pos`` over the full pages (with
+    ``window``, those of the ring inside the window) and the raw tail ring
+    ``k_tail``/``v_tail (B, pt, Kv, hd)`` bf16, normalised: ``(B, Kv, G,
+    hd)`` bf16.  On a CUDA device one launch of the kernel whose split merge
+    also takes the tail, counted in ``launches.attn`` and
+    ``launches.attn_tail``, inside the span ``paged_attn``; elsewhere, or
+    where ``merge`` is not :func:`merge_softmax` (the one merge the kernel
+    holds), :func:`paged_attention_decode` then :func:`tail_merge` with
+    ``merge``."""
+    if pages_k["ptrs"].device.type == "cuda" and merge is merge_softmax:
+        with obs.span("paged_attn"):
+            return _attend_cuda(q, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
+                                groups=groups, window=window, tail=(k_tail, v_tail))
+    qf = q.reshape(q.shape[0], n_kv, groups, hd).float()
+    state = paged_attention_decode(qf, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
+                                   groups=groups, window=window)
+    return tail_merge(qf, state, k_tail, v_tail, pos, window=window, merge=merge)
+
+
 def _attend_cuda(
     q: torch.Tensor,
     pages_k: dict[str, torch.Tensor], pages_v: dict[str, torch.Tensor],
     table: TableLike | PreparedTable, pos: int, cfg: FRConfig, *, n_kv: int, hd: int,
-    groups: int, window: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    groups: int, window: int = 0, tail: tuple[torch.Tensor, torch.Tensor] | None = None,
+):
+    """C's launch on the card: the state ``(acc, m, l)``, or with ``tail =
+    (k_tail, v_tail)`` the tail form's bf16 output."""
     geom = attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
     dev = pages_k["ptrs"].device
     B, S = pages_k["ptrs"].shape[:2]
@@ -494,16 +570,24 @@ def _attend_cuda(
 
     kg, splits = n_kv * groups, plan.splits
     part_acc, part_m, part_l = f32(B, splits, kg, hd), f32(B, splits, kg), f32(B, splits, kg)
-    acc, m, l = f32(B, n_kv, groups, hd), f32(B, n_kv, groups), f32(B, n_kv, groups)
+    if tail is None:
+        acc, m, l = f32(B, n_kv, groups, hd), f32(B, n_kv, groups), f32(B, n_kv, groups)
+        res, outs = (acc, m, l), [acc.data_ptr(), m.data_ptr(), l.data_ptr()]
+    else:
+        k_tail, v_tail = (_check_tail(t, (B, geom.pt, n_kv, hd), dev).contiguous() for t in tail)
+        out = torch.empty(B, n_kv, groups, hd, dtype=torch.bfloat16, device=dev)
+        res, outs = out, [k_tail.data_ptr(), v_tail.data_ptr(), out.data_ptr()]
     ptrs = _build.ptr_array([
         q.data_ptr(), *blob_k, *blob_v, *table_ptrs,
-        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), *outs,
     ])
     ip = _build.int_array(plan.iparams())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if window:
+        if tail is not None:
+            rc = _lib().gbdi_paged_attn_tail_launch(
+                ptrs, ip, _build.int_array([pos, lo, 1 if window else 0]), stream)
+        elif window:
             rc = _lib().gbdi_paged_attn_ring_launch(ptrs, ip, _build.int_array([cur, lo]), stream)
         else:
             rc = _lib().gbdi_paged_attn_launch(ptrs, ip, stream)
@@ -513,7 +597,18 @@ def _attend_cuda(
         obs.count("launches.attn")
         if geom.ts > 1:
             obs.count("launches.attn_sliced")
-    return acc, m, l
+        if tail is not None:
+            obs.count("launches.attn_tail")
+    return res
+
+
+def _check_tail(t: torch.Tensor, shape: tuple[int, ...], dev: torch.device) -> torch.Tensor:
+    """``t``, raising unless it is a raw tail ring the kernel can read: bf16
+    of ``shape`` on ``dev``."""
+    if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or t.device != dev:
+        raise ValueError(f"the tail ring must be bf16 {shape} on {dev}, not "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t
 
 
 def decode_pages(
@@ -560,5 +655,7 @@ __all__ = [
     "MASKED", "AttnGeometry", "LaunchPlan", "attn_geometry", "attn_iparams", "channel_chunks",
     "check_smem", "chunk_rows", "decode_pages", "inv_sqrt",
     "merge_softmax", "page_tokens", "pass_slots", "paged_attention_decode",
-    "paged_attention_decode_plain", "ring_bounds", "smem_bytes", "softmax_chunk", "token_slices",
+    "paged_attention_decode_plain", "paged_attention_decode_tail",
+    "paged_attention_decode_tail_plain", "ring_bounds", "smem_bytes", "softmax_chunk",
+    "tail_merge", "token_slices",
 ]

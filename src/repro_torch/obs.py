@@ -39,6 +39,7 @@ COUNTERS = (
     "launches.decode",    # kernel B launches
     "launches.attn",      # kernel C launches
     "launches.attn_sliced",  # of those, launches whose attention runs in token slices
+    "launches.attn_tail",    # of those, launches whose merge took the raw tail (the tail form)
     "table_prep.hit",     # prepared-table memo hits
     "table_prep.miss",    # and misses
     "words.encoded",      # words the KV cache encoded into page slots

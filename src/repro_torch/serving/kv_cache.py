@@ -28,9 +28,9 @@ model are caches side by side, each with its own spec.
 Appends go to the raw tail; when it fills, it is compressed into the next
 page slot with the encode kernel, and with ``resident_decode`` that blob
 is decoded once into the resident region with the decode kernel.
-:func:`attention_decode` attends over the compressed pages with the
-paged-attention kernel and merges the raw tail in (``paged``), or over a
-decoded view (``oracle``, ``resident``).
+:func:`attention_decode` attends over the compressed pages and the raw
+tail with the paged-attention kernel, which merges the tail in on the card
+(``paged``), or over a decoded view (``oracle``, ``resident``).
 
 Unlike the reference, which builds a new cache tree on every call, the
 port updates the cache's tensors in place: :func:`append` and
@@ -69,8 +69,7 @@ from repro_torch.kernels.gbdi_paged_attn import (
     MASKED,
     inv_sqrt,
     merge_softmax,
-    paged_attention_decode,
-    softmax_chunk,
+    paged_attention_decode_tail,
 )
 
 KV_FR = FRConfig(word_bits=16, page_words=DEFAULT_PAGE_WORDS,
@@ -344,8 +343,10 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
     it decodes every page).  ``'resident'`` is the same math over the
     ``resident_decode`` region, so no page is decoded on this step, and is
     bit-identical to ``'oracle'``.  ``'paged'`` attends over the compressed
-    pages with the paged-attention kernel and merges the raw tail with the
-    streaming-softmax identity; it needs whole rows in a page.  ``'auto'``
+    pages and the raw tail with the paged-attention kernel, which merges the
+    two by the streaming-softmax identity
+    (:func:`~repro_torch.kernels.gbdi_paged_attn.paged_attention_decode_tail`);
+    it needs whole rows in a page.  ``'auto'``
     picks the resident region when the cache has one, else ``'paged'``.
     """
     with obs.span("kv_cache.attention_decode"):
@@ -375,23 +376,13 @@ def _attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
 
     B, _, H, hd = q.shape
     Kv = spec.n_kv
-    G = H // Kv
-    qg = q.reshape(B, Kv, G, hd).float()
-    acc, m, l = paged_attention_decode(
-        qg, cache["k_pages"], cache["v_pages"], cache["table"], pos, spec.fr,
-        n_kv=Kv, hd=hd, groups=G, window=spec.window)
-    # the raw tail (the current partial page), then the softmax merge
-    with obs.span("kv_cache.tail_merge"):
-        pt = spec.page_tokens
-        Kt, Vt = cache["k_tail"].float(), cache["v_tail"].float()
-        tok = (pos // pt) * pt + torch.arange(pt, device=qg.device)
-        tail_valid = tok <= pos
-        if spec.window:
-            tail_valid &= tok > pos - spec.window
-        tail = softmax_chunk(qg, Kt, Vt, tail_valid, inv_sqrt(hd, qg.device))
-        accm, _, lm = merge_softmax(acc, m, l, *tail)
-        out = accm / lm[..., None]
-        return out.reshape(B, 1, H * hd).to(cache["k_tail"].dtype)
+    # merge_softmax is read here at each call, so a merge put in its place
+    # (the benchmark's tail_dropped fault) runs eagerly on the card as well
+    out = paged_attention_decode_tail(
+        q.reshape(B, Kv, H // Kv, hd), cache["k_pages"], cache["v_pages"], cache["table"], pos,
+        spec.fr, k_tail=cache["k_tail"], v_tail=cache["v_tail"], n_kv=Kv, hd=hd, groups=H // Kv,
+        window=spec.window, merge=merge_softmax)
+    return out.reshape(B, 1, H * hd)
 
 
 __all__ = ["BACKENDS", "KV_FR", "Cache", "KVSpec", "append", "attention_decode",

@@ -784,7 +784,8 @@ def test_backend_parity_fires_on_each_missing_twin(tmp_path, break_it, expect):
 def test_backend_parity_on_the_tree_flags_only_the_baselined_ops():
     project = load_project([REPO / "src/repro_torch/kernels"], root=REPO)
     fs = findings_of(project, ["backend-parity"])
-    assert sorted(f.anchor for f in fs) == ["def decode_pages(", "def paged_attention_decode("]
+    assert sorted(f.anchor for f in fs) == ["def decode_pages(", "def paged_attention_decode(",
+                                            "def paged_attention_decode_tail("]
     from repro_torch.analysis.format_checkers import c_entries
 
     for name in smem_cost.KERNEL_MODULES.values():

@@ -497,6 +497,82 @@ def test_inv_sqrt_is_memoised_float32(hd):
     assert t_pa.inv_sqrt(hd, torch.device("cpu")) is got
 
 
+def _tail_ring(pt, n_kv, hd, dev, seed):
+    """A raw tail ring (B, pt, n_kv, hd) bf16 of K or V rows; its slots past
+    the position hold earlier tokens, which the merge must mask."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    return (2 * torch.randn(B, pt, n_kv, hd, generator=gen, device=dev)).to(torch.bfloat16)
+
+
+def _eager_tail_merge(qf, state, k_tail, v_tail, pos, window):
+    """The raw tail's attention and merge as ``kv_cache`` ran them after C
+    before the kernel took them over, written out."""
+    pt = k_tail.shape[1]
+    Kt, Vt = k_tail.float(), v_tail.float()
+    tok = (pos // pt) * pt + torch.arange(pt, device=qf.device)
+    tail_valid = tok <= pos
+    if window:
+        tail_valid &= tok > pos - window
+    tail = t_pa.softmax_chunk(qf, Kt, Vt, tail_valid, t_pa.inv_sqrt(qf.shape[-1], qf.device))
+    accm, _, lm = t_pa.merge_softmax(*state, *tail)
+    return (accm / lm[..., None]).to(k_tail.dtype)
+
+
+def _tail_positions(pt, cur):
+    """Positions in page ``cur`` whose tail holds 1, pt - 1 and pt tokens."""
+    return sorted({cur * pt + k - 1 for k in (1, pt - 1, pt) if k >= 1})
+
+
+@pytest.mark.parametrize("window", [0, 13])
+def test_tail_form_on_cpu_is_the_eager_merge(window):
+    """On the CPU the tail form is the pages' state then the eager tail merge,
+    bit for bit, at a full layer and a window layer (a ring of 4 slots of 4
+    tokens, wrapped), with the tail holding 1, pt - 1 and pt tokens and before
+    the first full page; the plain twin gives the same bits, and no launch is
+    counted."""
+    cfg = tfr.FRConfig(**FR48)
+    n_kv, hd, groups = 1, 64, 4
+    cpu = torch.device("cpu")
+    pt = cfg.page_words // (n_kv * hd)
+    slots = -(-window // pt) if window else 9
+    pk, pv, table, _ = _card_pages(cfg, n_kv, hd, slots, cpu, seed=slots)
+    kt, vt = _tail_ring(pt, n_kv, hd, cpu, 1), _tail_ring(pt, n_kv, hd, cpu, 2)
+    q = torch.randn(B, n_kv, groups, hd, generator=torch.Generator().manual_seed(3)) * 4
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups, window=window)
+    before = (_launches("attn"), _launches("attn_tail"))
+    for pos in [0, pt - 2] + _tail_positions(pt, 3 * slots + 1 if window else slots - 1):
+        state = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+        want = _eager_tail_merge(q, state, kt, vt, pos, window)
+        got = t_pa.paged_attention_decode_tail(q, pk, pv, table, pos, cfg, k_tail=kt, v_tail=vt,
+                                               **geom)
+        plain = t_pa.paged_attention_decode_tail_plain(q, pk, pv, table, pos, cfg, k_tail=kt,
+                                                       v_tail=vt, **geom)
+        assert got.shape == (B, n_kv, groups, hd) and got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), pos
+        assert torch.equal(plain.view(torch.int16), want.view(torch.int16)), pos
+    assert (_launches("attn"), _launches("attn_tail")) == before
+
+
+def test_tail_form_runs_a_given_merge():
+    """A merge other than merge_softmax is run as given (eagerly): one that
+    keeps the pages' state alone leaves the tail out of the output."""
+    cfg = tfr.FRConfig(**FR48)
+    n_kv, hd, groups, slots = 1, 64, 4, 6
+    cpu = torch.device("cpu")
+    pk, pv, table, pt = _card_pages(cfg, n_kv, hd, slots, cpu, seed=4)
+    kt, vt = _tail_ring(pt, n_kv, hd, cpu, 5), _tail_ring(pt, n_kv, hd, cpu, 6)
+    q = torch.randn(B, n_kv, groups, hd, generator=torch.Generator().manual_seed(7)) * 4
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+    pos = slots * pt - 2
+    acc, m, l = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+    got = t_pa.paged_attention_decode_tail(q, pk, pv, table, pos, cfg, k_tail=kt, v_tail=vt,
+                                           merge=lambda acc, m, l, *tail: (acc, m, l), **geom)
+    assert torch.equal(got, (acc / l[..., None]).to(torch.bfloat16))
+    full = t_pa.paged_attention_decode_tail(q, pk, pv, table, pos, cfg, k_tail=kt, v_tail=vt,
+                                            **geom)
+    assert not torch.equal(got, full)
+
+
 # ---------------------------------------------------------------------------
 # on the card: kernel vs plain
 # ---------------------------------------------------------------------------
@@ -597,6 +673,66 @@ def test_ring_kernel_matches_plain_on_card(cuda_device, geom, whole_pages):
         want = t_pa.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, n_kv=n_kv,
                                                  hd=hd, groups=groups, window=window)
         assert_state_close([t.cpu() for t in got], [t.cpu() for t in want])
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """``|got - want|`` elementwise in bf16 ulps of ``max(1, |want|)``: the
+    resolution at which the benchmark's ``attn_gap`` (``|d| / max(1, |ref|)``)
+    reads an output, so a rounding flip counts one and a near-zero output's
+    float32 noise counts next to nothing."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1))) - 7)
+    return (got.float() - w).abs() / ulp
+
+
+#: the tail form's card cases: (n_kv, hd, groups, page slots, window): the
+#: decode cells' full layers (mixtral's G 6 at hd 128, musicgen's one token a
+#: page), the serving shape, and the rings of RING_GEOMS at a window of whole
+#: pages and one of not
+TAIL_CASES = {
+    "mixtral": (1, 128, 6, 45, 0), "musicgen": (32, 64, 1, 50, 0),
+    "serving": (8, 128, 16, 24, 0),
+    **{f"ring-{g}-{w}": (*RING_GEOMS[g], None, w) for g in RING_GEOMS for w in ("whole", "part")},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_tail_form_matches_unfused_on_card(cuda_device, case):
+    """The tail form (C, then the merge kernel taking the raw tail) against
+    unfused C followed by the eager tail merge and against its plain version
+    (``paged_attention_decode_tail_plain``), within one bf16 ulp, with the
+    tail holding 1, pt - 1 and pt tokens and before the first full page (C
+    contributes nothing there); ``launches.attn_tail`` rises by one a
+    tail-form call and not for a direct ``paged_attention_decode`` call."""
+    cfg = tfr.FRConfig(**KV_FR)
+    n_kv, hd, groups, slots, window = TAIL_CASES[case]
+    pt = cfg.page_words // (n_kv * hd)
+    if window is not None:
+        window = 40 * pt - (0 if window == "whole" else max(1, pt // 2))
+        slots = -(-window // pt)
+    pk, pv, table, _ = _card_pages(cfg, n_kv, hd, slots, cuda_device, seed=slots + pt)
+    kt, vt = (_tail_ring(pt, n_kv, hd, cuda_device, s) for s in (1, 2))
+    q = torch.randn(B, n_kv, groups, hd, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3)) * 4
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups, window=window or 0)
+    cur = 3 * slots + 1 if window else slots - 1
+    for pos in [pt // 2] + _tail_positions(pt, cur):
+        n0, t0 = _launches("attn"), _launches("attn_tail")
+        got = t_pa.paged_attention_decode_tail(q, pk, pv, table, pos, cfg, k_tail=kt, v_tail=vt,
+                                               **geom)
+        torch.cuda.synchronize()
+        assert (_launches("attn"), _launches("attn_tail")) == (n0 + 1, t0 + 1)
+        state = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+        assert (_launches("attn"), _launches("attn_tail")) == (n0 + 2, t0 + 1)
+        unfused = t_pa.tail_merge(q, state, kt, vt, pos, window=geom["window"])
+        plain = t_pa.paged_attention_decode_tail_plain(q, pk, pv, table, pos, cfg, k_tail=kt,
+                                                       v_tail=vt, **geom)
+        assert got.shape == plain.shape and got.dtype == torch.bfloat16
+        assert got.isfinite().all()
+        for want in (unfused, plain):
+            ulps = bf16_ulps(got, want)
+            assert float(ulps.max()) <= 1, (pos, float(ulps.max()), int((ulps > 1).sum()))
 
 
 @pytest.mark.cuda
