@@ -55,7 +55,13 @@ Phases, in order; any failure exits non-zero before the final line:
    its plain version and against unfused C followed by the eager tail
    merge, within one bf16 ulp (a dropped or mis-masked tail shown to miss
    by more), its launches counted, and timed against the unfused pair with
-   the host included (:func:`tail_form`).  Phases 5, 7
+   the host included (:func:`tail_form`); (c) kernel C over rows that span
+   two page slots at :data:`MULTIPAGE`, the deepseek-7b decode cell's
+   geometry (:func:`multipage_attention`): the state form against its plain
+   version at the cell's first and last positions, timed beside its bound,
+   its plain version and SDPA, the tail form as in 7 (a dropped tail and the
+   head groups' slots swapped shown to miss), every launch counted in
+   ``launches.attn_multipage``.  Phases 5, 7
    and 7 (b) also hold ``launches.attn_sliced`` to the rule of
    ``gbdi_paged_attn.token_slices``: a sliced launch where a shape takes more
    than one token slice (7 (b), the decode cells' G 6), none at the serving
@@ -123,10 +129,13 @@ Phases, in order; any failure exits non-zero before the final line:
    (d) the trained parameters and serving caches captured as ``dump:``
    families, ``evaluate(suite="dump")`` over gbdi, bdi and fr (kernels A and
    B), each family held to the CPU; (e) kernel C in a ``KVSession`` at the
-   attention geometries of mixtral, qwen3, paligemma and musicgen over layer
-   0's K/V of a 2,048-token prompt, against its plain version and SDPA,
-   timed; zamba2's ``KVSpec`` refused.  Launches counted over the sessions
-   and the dump suite;
+   attention geometries of mixtral, qwen3, paligemma, musicgen and
+   deepseek-7b (a row over two page slots; one layer at full width, built
+   for this step alone) over layer 0's K/V of a 2,048-token prompt, against
+   its plain version and SDPA, timed, ``launches.attn_multipage`` equal to
+   ``launches.attn`` for deepseek-7b and 0 for the rest; zamba2's
+   ``KVSpec`` refused.  Launches counted over the sessions and the dump
+   suite;
 14. the launch tools: (a) ``repro_torch.launch.dryrun`` on this machine's
    host (fake tensors, nothing allocated) for every config at decode_32k and
    long_500k (the reference's skips) and deepseek-7b at train_4k and
@@ -155,8 +164,9 @@ Phases, in order; any failure exits non-zero before the final line:
    counted over (c).
 
 It ends with one ``{"kernels": [...]}`` line (the paged-attention kernel's
-ring instantiation on a row of its own, ``gbdi_paged_attn.ring``), then the ``{"ok": true, ...}``
-line.  Exit code 2: no CUDA device.
+ring instantiation on a row of its own, ``gbdi_paged_attn.ring``, and its
+rows over two page slots on another, ``gbdi_paged_attn.multipage``), then
+the ``{"ok": true, ...}`` line.  Exit code 2: no CUDA device.
 """
 from __future__ import annotations
 
@@ -211,6 +221,16 @@ RING = {"batch": 128, "n_kv": 1, "hd": 128, "groups": 6, "window": 4096,
 #: heads, 16-token pages), batch 32 over 2,048 page slots, at a position whose
 #: tail holds 9 tokens
 CELL = {"batch": 32, "n_kv": 1, "hd": 128, "groups": 6, "slots": 2048, "pos": 32760}
+#: phase 7 (c): kernel C over rows that span two page slots, at the benchmark
+#: cell deepseek-7b.decode-4k's geometry (32 KV heads of 128, one query head a
+#: KV head: a 4,096-word row over two 2,048-word slots of 16 heads each),
+#: batch 32 over 4,096 tokens a row, at the first and the last position of the
+#: cell's rounds (the times at the last)
+MULTIPAGE = {"batch": 32, "n_kv": 32, "hd": 128, "groups": 1, "tokens": 4096,
+             "positions": (4032, 4095)}
+#: phase 7 (c): tokens a row the plain version decodes at once (2 x 32 x 512
+#: page slots of K and V)
+MULTIPAGE_PLAIN_CHUNK = 512
 SEED = 12
 
 
@@ -338,17 +358,19 @@ def tail_launches() -> int:
 
 def cell_pages(card, batch: int, n_kv: int, hd: int, n_slots: int, seed: int):
     """(ks, vs, pk, pv, table, gen): seeded channel-structured bf16 K/V of
-    ``n_slots`` pages a row (phase 5's structure), the table fitted to the
-    first row's first 32 tokens, the page slots kernel A encodes, and the
-    generator, for the queries."""
+    ``n_slots`` pages a row (tokens where a row spans ``ppr`` page slots,
+    which then fill ``n_slots * ppr`` slots; phase 5's structure), the table
+    fitted to the first row's first 32 tokens, the page slots kernel A
+    encodes, and the generator, for the queries."""
     import torch
 
     from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
     from repro_torch.kernels import gbdi_encode as enc_mod
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
     from repro_torch.serving import kv_cache as kvc
 
     cfg = kvc.KV_FR
-    pt = cfg.page_words // (n_kv * hd)
+    pt, ppr = pa_mod.attn_layout(cfg, n_kv, hd)
     gen = torch.Generator(device=card).manual_seed(seed)
     means = torch.randn(1, 1, n_kv, hd, generator=gen, device=card) * 2
 
@@ -362,23 +384,25 @@ def cell_pages(card, batch: int, n_kv: int, hd: int, n_slots: int, seed: int):
 
     def slots(x):
         words = bf16_to_words(x).reshape(-1, cfg.page_words).contiguous()
-        return {k: v.reshape((batch, n_slots) + v.shape[1:])
+        return {k: v.reshape((batch, n_slots * ppr) + v.shape[1:])
                 for k, v in enc_mod.gbdi_encode(words, table, cfg).items()
                 if k not in ("n_spilled", "n_dropped")}
 
     return ks, vs, slots(ks), slots(vs), table, gen
 
 
-def tail_form(card, event_ms, label: str, q, pk, pv, table, pos: int, geom: dict, gen) -> dict:
-    """Phases 7 and 7 (b): kernel C's tail form (``paged_attention_decode_tail``:
+def tail_form(card, event_ms, label: str, q, pk, pv, table, pos: int, geom: dict, gen,
+              wrong=None) -> dict:
+    """Phases 7, 7 (b) and 7 (c): kernel C's tail form (``paged_attention_decode_tail``:
     the raw tail ring scored and merged in C's merge kernel, bf16 out) at
     ``pos``, over a seeded tail ring of independent ``2 * randn`` K and V rows
     (so the tail carries weight beside the pages), held within one bf16 ulp
     against its plain version (``paged_attention_decode_tail_plain``) and
     against unfused C followed by the eager tail merge.  The check is shown
-    to bite: the output with the tail dropped, and those with the tail's mask
-    ending one position early or late, each miss the plain version by more
-    than an ulp.  One ``launches.attn_tail`` a tail-form call and none for C
+    to bite: the output with the tail dropped, those with the tail's mask
+    ending one position early or late (where a page holds several tokens),
+    and those ``wrong(k_tail, v_tail)`` gives by name, each miss the plain
+    version by more than an ulp.  One ``launches.attn_tail`` a tail-form call and none for C
     alone; then both timed in turns with the host included (CUDA events
     around the call on an idle card), median and min of ``TIMING_REPEATS``.
     Returns the times and the launches of C and of its tail form, counted
@@ -391,7 +415,8 @@ def tail_form(card, event_ms, label: str, q, pk, pv, table, pos: int, geom: dict
     cfg, window = kvc.KV_FR, geom.get("window", 0)
     B, n_kv, hd = q.shape[0], geom["n_kv"], geom["hd"]
     pt = pa_mod.page_tokens(cfg, n_kv, hd)
-    if not 0 < pos % pt < pt - 1:
+    shifts = (-1, 1) if pt > 1 else ()      # a one-token tail has no mask to shift
+    if shifts and not 0 < pos % pt < pt - 1:
         raise ValueError(f"[{label}] pos {pos} leaves no room to shift the tail's mask in page")
     kt, vt = ((2 * torch.randn(B, pt, n_kv, hd, generator=gen, device=card)).to(torch.bfloat16)
               for _ in "kv")
@@ -419,10 +444,11 @@ def tail_form(card, event_ms, label: str, q, pk, pv, table, pos: int, geom: dict
     if max(ulps.values()) > 1 or not got.isfinite().all():
         raise AssertionError(f"[{label}] tail form vs plain and vs unfused C + eager merge: "
                              f"{ulps} bf16 ulps")
-    wrong = {"tail dropped": (acc / l[..., None]).to(torch.bfloat16),
-             **{f"mask to {pos + d}": pa_mod.tail_merge(q, state, kt, vt, pos + d, window=window)
-                for d in (-1, 1)}}
-    misses = {k: float(bf16_ulps(w, want).max()) for k, w in wrong.items()}
+    wrongs = {"tail dropped": (acc / l[..., None]).to(torch.bfloat16),
+              **{f"mask to {pos + d}": pa_mod.tail_merge(q, state, kt, vt, pos + d, window=window)
+                 for d in shifts},
+              **(wrong(kt, vt) if wrong else {})}
+    misses = {k: float(bf16_ulps(w, want).max()) for k, w in wrongs.items()}
     if min(misses.values()) <= 1:
         raise AssertionError(f"[{label}] a wrong tail passes the one-ulp check: {misses} ulps")
     times = {"fused": [], "unfused": []}
@@ -544,6 +570,110 @@ def ring_attention(card, event_ms, peak: float, batch: int = RING["batch"]) -> d
         f"{bytes_ms:.4f} ms = {n_bytes} B / {peak:.3g} B/s; operations {ops_ms:.4f} ms); "
         f"roofline share {row['bound_ms'] / ms:.3f}; plain {plain_ms:.3f} ms; SDPA over {T} raw "
         f"tokens {lib_ms:.4f} ms; {launches} launches ({sliced} in {ts} token slices); largest "
+        f"errors {errs} ({card_tag(card)})")
+    return row
+
+
+def multipage_attention(card, event_ms, peak: float, batch: int = MULTIPAGE["batch"]) -> dict:
+    """Phase 7 (c): kernel C over rows that span several page slots, at
+    :data:`MULTIPAGE` (the deepseek-7b decode cell's geometry): seeded
+    channel-structured bf16 K/V in page slots ``t * ppr + j``; at each of
+    ``MULTIPAGE["positions"]`` the state form against its plain version
+    within ``ATTN_TOL``, one launch a call; then at the last its time (CUDA
+    events, warmed, median) beside its bound on this card (bytes: every
+    valid token's ``ppr`` slots, q and the state; operations as phase 7),
+    its plain version's time and SDPA over as many tokens held raw; last the
+    tail form (:func:`tail_form`), shown to bite on the head groups' slots
+    swapped too.  Every C launch of the phase is counted in
+    ``launches.attn_multipage`` as in ``launches.attn``.  Returns the
+    ``kernels`` line's fields, launches included."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import gbdi_paged_attn as pa_mod
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg = kvc.KV_FR
+    n_kv, hd, G, T = (MULTIPAGE[k] for k in ("n_kv", "hd", "groups", "tokens"))
+    geom = dict(n_kv=n_kv, hd=hd, groups=G)
+    pt, ppr = pa_mod.attn_layout(cfg, n_kv, hd)
+    if (pt, ppr) != (1, 2):
+        raise AssertionError(f"[7c] {n_kv} x {hd} rows lay out as {pt} tokens a page, "
+                             f"{ppr} slots a row, not one token over two slots")
+    H = n_kv * G
+    ks, vs, pk, pv, table, gen = cell_pages(card, batch, n_kv, hd, T, SEED + 5)
+    q = torch.randn(batch, n_kv, G, hd, generator=gen, device=card) * 4
+
+    def counted() -> dict:
+        c = obs.snapshot(spans=False)["counters"]
+        return {k: c[f"launches.{k}"] for k in ("attn", "attn_multipage")}
+
+    def attend():
+        return pa_mod.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+
+    def plain(pk, pv):
+        return pa_mod.paged_attention_decode_plain(q, pk, pv, table, pos, cfg,
+                                                   chunk_slots=MULTIPAGE_PLAIN_CHUNK, **geom)
+
+    c0, errs = counted(), {"out": 0.0, "m": 0.0, "l": 0.0}
+    for pos in MULTIPAGE["positions"]:
+        before = counted()["attn"]
+        got = attend()
+        n = counted()["attn"] - before
+        err = attn_errors(*got, *plain(pk, pv))
+        if n != 1 or any(err[k] > ATTN_TOL[k] for k in ATTN_TOL):
+            raise AssertionError(f"[7c] pos {pos}: {n} launches, kernel vs plain {err} "
+                                 f"(tolerances {ATTN_TOL})")
+        for k, v in err.items():
+            errs[k] = max(errs[k], v)
+        log(f"[7c] pos {pos}: {pos // pt} tokens in {pos // pt * ppr} page slots a row: "
+            f"max|acc/l| err {err['out']:.3g}, m rel err {err['m']:.3g}, l rel err "
+            f"{err['l']:.3g}")
+
+    def median_ms(fn):
+        fn()
+        times = sorted(event_ms(fn) for _ in range(TIMING_REPEATS))
+        return times[len(times) // 2]
+
+    n_valid = pos // pt
+    ms = median_ms(attend)
+    plain_ms = event_ms(lambda: plain(pk, pv))
+    page_bytes = 4 * (cfg.ptr_lanes + cfg.delta_lanes + 2 * cfg.outlier_cap + 1)
+    n_bytes = 2 * batch * n_valid * ppr * page_bytes + q.numel() * 4 + batch * H * (hd + 2) * 4
+    bytes_ms = n_bytes / peak * 1e3
+    ops_ms = (4.0 * batch * H * n_valid * pt * hd / F32_OPS_S
+              + 4.0 * 2 * batch * n_valid * ppr * cfg.page_words / INT_OPS_S) * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh = q.reshape(batch, H, 1, hd).to(torch.bfloat16)
+    Kr, Vr = (x[:, :n_valid * pt].permute(0, 2, 1, 3).contiguous() for x in (ks, vs))
+    lib_ms = median_ms(lambda: sdpa(qh, Kr, Vr, enable_gqa=True))
+    del Kr, Vr
+
+    def swapped(pages):   # token t's head groups read each other's slots
+        return {k: v.reshape((batch, T, ppr) + v.shape[2:]).flip(2).reshape(v.shape)
+                for k, v in pages.items()}
+
+    def wrong(kt, vt):
+        return {"head groups swapped": pa_mod.paged_attention_decode_tail_plain(
+            q, swapped(pk), swapped(pv), table, pos, cfg, k_tail=kt, v_tail=vt, **geom)}
+
+    tail = tail_form(card, event_ms, "7c", q, pk, pv, table, pos, geom, gen, wrong=wrong)
+    c1 = counted()
+    launches = c1["attn"] - c0["attn"]
+    if c1["attn_multipage"] - c0["attn_multipage"] != launches:
+        raise AssertionError(f"[7c] {c1['attn_multipage'] - c0['attn_multipage']} multipage "
+                             f"launches of {launches}")
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
+           "launches": launches, "max_abs_err": errs["out"], "tail_ms": tail["ms"],
+           "tail_ulps": tail["ulps"]}
+    log(f"[7c] rows over {ppr} page slots at B={batch} Kv={n_kv} G={G} hd={hd}, pos {pos} "
+        f"({n_valid} tokens, {n_valid * ppr} slots a row): {ms:.4f} ms (median of "
+        f"{TIMING_REPEATS}) against a bound of {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"(bytes {bytes_ms:.4f} ms = {n_bytes} B / {peak:.3g} B/s; operations {ops_ms:.4f} ms); "
+        f"roofline share {row['bound_ms'] / ms:.3f}; plain {plain_ms:.3f} ms; SDPA over "
+        f"{n_valid * pt} raw tokens {lib_ms:.4f} ms; tail form {tail['ms']:.4f} ms within "
+        f"{tail['ulps']:.3g} ulp of plain; {launches} launches, all counted multipage; largest "
         f"errors {errs} ({card_tag(card)})")
     return row
 
@@ -1646,9 +1776,11 @@ ZOO_F32_TOL = 1e-3
 #: phase 13 (d): each capture's sample, and the dump suite's bytes a family
 ZOO_CAPTURE_BYTES, ZOO_SUITE_BYTES = 64 << 20, 16 << 20
 #: phase 13 (e): kernel C at these configs' attention geometries, over the
-#: K/V that layer 0 writes for a 2,048-token prompt at batch 4
+#: K/V that layer 0 writes for a 2,048-token prompt at batch 4; a config not
+#: in ZOO (deepseek-7b, whose row spans two page slots) is built at full
+#: width with one layer for this step alone
 ZOO_ATTN, ZOO_PROMPT = ("mixtral-8x22b", "qwen3-moe-235b-a22b", "paligemma-3b",
-                        "musicgen-large"), 2048
+                        "musicgen-large", "deepseek-7b"), 2048
 
 
 def zoo_batch(cfg, batch: int, seq: int, card, seed: int = SEED) -> dict:
@@ -1878,11 +2010,14 @@ def zoo_attention(card, model, counted: dict) -> tuple[dict, object]:
     0's K/V into a ``KVSession`` built from ``model.kv_cache_spec``, whose
     three steps (append + kernel C) are the counted path; at each step
     kernel C against its plain version within ``ATTN_TOL`` and the step
-    against SDPA over the raw cache; then C and SDPA timed.  Adds the
-    session's launches to ``counted``; returns the geometry's row and the
-    prompt's serving cache captured and sampled (:func:`sampled_image`)."""
+    against SDPA over the raw cache; then C and SDPA timed.  Every launch of
+    C over rows that span several page slots is counted in
+    ``launches.attn_multipage`` too, and no other.  Adds the session's
+    launches to ``counted``; returns the geometry's row and the prompt's
+    serving cache captured and sampled (:func:`sampled_image`)."""
     import torch
 
+    from repro_torch import obs
     from repro_torch.core.gbdi_fr import bf16_to_words, fit_fr_bases
     from repro_torch.eval import run as eval_run
     from repro_torch.kernels import gbdi_paged_attn as pa_mod
@@ -1892,6 +2027,8 @@ def zoo_attention(card, model, counted: dict) -> tuple[dict, object]:
     cfg = model.cfg
     Kv, hd, H = cfg.n_kv_heads, cfg.head_dim_, cfg.n_heads
     G, B, T, steps = H // Kv, ZOO_BATCH, ZOO_PROMPT, 3
+    attn0 = {k: obs.snapshot(spans=False)["counters"][f"launches.{k}"]
+             for k in ("attn", "attn_multipage")}
     prefix = cfg.n_patches if cfg.family == "vlm" else 0
     gen = torch.Generator(device=card).manual_seed(SEED + 2)
     batch = zoo_batch(cfg, B, T - prefix, card, seed=SEED + 2)
@@ -1972,12 +2109,20 @@ def zoo_attention(card, model, counted: dict) -> tuple[dict, object]:
     ops_ms = (4.0 * B * H * S * hd / F32_OPS_S
               + 4.0 * 2 * B * n_valid * spec.pages_per_row * fr.page_words / INT_OPS_S) * 1e3
     bytes_ms = pa_bytes / eval_run.peak_bytes_s(torch.cuda.get_device_name(card)) * 1e3
+    attn = {k: obs.snapshot(spans=False)["counters"][f"launches.{k}"] - n
+            for k, n in attn0.items()}
+    if attn["attn_multipage"] != (attn["attn"] if spec.pages_per_row > 1 else 0):
+        raise AssertionError(f"[13e] {cfg.arch_id}: {attn['attn_multipage']} multipage launches "
+                             f"of {attn['attn']}, {spec.pages_per_row} page slots a row")
     row = {"arch": cfg.arch_id, "Kv": Kv, "G": G, "hd": hd, "page_tokens": pt,
+           "pages_per_row": spec.pages_per_row,
            "slots_a_pass": pa_mod.pass_slots(fr, **geom), "ms": c_ms, "sdpa_ms": sdpa_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **errs}
     log(f"[13e] {cfg.arch_id}: kernel C at B={B} Kv={Kv} G={G} hd={hd} ({pt} tokens a page, "
-        f"{row['slots_a_pass']} slots a pass, {n_valid} full pages): {c_ms:.4f} ms, SDPA over "
+        f"{spec.pages_per_row} page slot(s) a row, {row['slots_a_pass']} slots a pass, "
+        f"{n_valid} full pages, {attn['attn_multipage']} of {attn['attn']} launches "
+        f"multipage): {c_ms:.4f} ms, SDPA over "
         f"the same {S} tokens raw {sdpa_ms:.4f} ms (C {c_ms / sdpa_ms:.2f}x; medians of "
         f"{TIMING_REPEATS}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}; vs plain max "
         f"|acc/l| {errs['out']:.3g}, m {errs['m']:.3g}, l {errs['l']:.3g}; step vs SDPA "
@@ -2081,6 +2226,15 @@ def model_zoo(card) -> dict:
         del model
         torch.cuda.empty_cache()
         log(f"[13] {arch} in {time.perf_counter() - t_arch:.1f} s ({card_tag(card)})")
+    for arch in ZOO_ATTN:
+        if arch in ZOO:
+            continue
+        model = build_model(dc.replace(get_config(arch), n_layers=1), card)
+        model.init(torch.Generator(device=card).manual_seed(SEED))
+        row, _ = zoo_attention(card, model, counted)
+        attn_rows.append(row)
+        del model
+        torch.cuda.empty_cache()
 
     reg = WorkloadRegistry([image_family(img) for img in images])
     t0 = time.perf_counter()
@@ -2430,7 +2584,7 @@ def analysis_gate(card, logs: dict, smi: str) -> dict:
                                           device=card)).to(torch.bfloat16) for _ in "kv")
         table = fit_fr_bases(bf16_to_words(torch.cat([ks[0].reshape(-1), vs[0].reshape(-1)])),
                              cfg)
-        pk, pv = ({k: v.reshape((GATE_BATCH, GATE_SLOTS) + v.shape[1:]) for k, v in
+        pk, pv = ({k: v.reshape((GATE_BATCH, -1) + v.shape[1:]) for k, v in
                    enc_mod.gbdi_encode(bf16_to_words(t).reshape(-1, cfg.page_words).contiguous(),
                                        table, cfg).items() if k not in ("n_spilled", "n_dropped")}
                   for t in (ks, vs))
@@ -2971,6 +3125,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cell_tail_form(dev, event_ms)
     torch.cuda.empty_cache()
+    multipage_row = multipage_attention(dev, event_ms, peak)
+    torch.cuda.empty_cache()
 
     # -- phase 8: the paper's suite on the card ---------------------------------
     t8 = time.perf_counter()
@@ -3147,6 +3303,11 @@ def main() -> int:
         "name": "gbdi_paged_attn.ring", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbdi_paged_attn.cu",
         "replaces": replaces["gbdi_paged_attn"], **ring_row,
+    })
+    kernels.append({
+        "name": "gbdi_paged_attn.multipage", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gbdi_paged_attn.cu",
+        "replaces": replaces["gbdi_paged_attn"], **multipage_row,
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi)

@@ -71,7 +71,7 @@ PASS_LOOP = '''    __syncthreads();
     body(s0, n_s);
   }
 '''
-PASS_START = "  const size_t row0 = static_cast<size_t>(b) * a.S;\n  const int pass_ints"
+PASS_START = "  const int pass_ints = 2 * L.side;\n"
 ATTN_TOKENS = "    const int T = n_s * a.pt;\n"
 #: step names in counter order: 1 and 2 in the pass loop, 3.. at the decode's
 #: barriers, 7 after the attention

@@ -52,9 +52,11 @@ RESERVED_SMEM_BYTES = 1024
 SM_MAX_THREADS = 2048
 SM_MAX_BLOCKS = 32
 #: the attention geometries the port serves (configs by name: n_kv heads,
-#: head dim, query heads a KV head), and phase 5's 512-channel head
+#: head dim, query heads a KV head; deepseek-7b's 4,096-word row spans two
+#: page slots, so its block holds a page's 16 heads), and phase 5's
+#: 512-channel head
 ATTN_ARCHS = ("llama3-405b", "mixtral-8x22b", "qwen3-moe-235b-a22b", "paligemma-3b",
-              "musicgen-large")
+              "musicgen-large", "deepseek-7b")
 WIDE_HEAD = ("hd-512 head", 1, 512, 8)
 
 

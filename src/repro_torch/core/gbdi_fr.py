@@ -238,6 +238,21 @@ def lead_blob(blob: dict[str, torch.Tensor], lead: tuple[int, ...],
     return {k: v.reshape(tuple(lead) + v.shape[1:]) for k, v in blob.items() if k in fields}
 
 
+def page_layout(cfg: FRConfig, row_words: int) -> tuple[int, int]:
+    """``(pt, ppr)`` for token rows of ``row_words`` words laid in page slots:
+    a page of whole rows holds ``pt = page_words // row_words`` consecutive
+    tokens (``ppr`` 1); a row of whole pages fills ``ppr = row_words //
+    page_words`` slots a token (``pt`` 1), slot ``t * ppr + j`` holding the
+    row's ``j``-th page of words.  Raises unless one divides the other."""
+    P = cfg.page_words
+    if row_words > 0 and P % row_words == 0:
+        return P // row_words, 1
+    if row_words > 0 and row_words % P == 0:
+        return 1, row_words // P
+    raise ValueError(f"a {P}-word page and a {row_words}-word row must divide one another "
+                     f"(a whole number of rows a page, or of pages a row)")
+
+
 # ---------------------------------------------------------------------------
 # lane packing (32 % bits == 0)
 # ---------------------------------------------------------------------------

@@ -77,6 +77,17 @@
 // gives it page cur - S, wholly before the window; the raw tail holds page
 // cur).  Everything else is the full-attention kernel's.
 //
+// Rows wider than a page (a multipage row: Kv * hd = ppr * P, each page
+// whole heads) fill ppr page slots a token: slot t * ppr + j holds heads
+// [j Kv / ppr, (j + 1) Kv / ppr) of token t, and a page one token (pt 1).
+// Grid axis z then runs over the ppr head groups too (z = head group x the
+// group's row chunks and channel chunks): a block of group j stages and
+// decodes only the slots t * ppr + j of its run, which hold every row it
+// attends for, so each slot is still decoded once.  ppr comes from n_kv * hd
+// and P at unpack; the slot index and the block's first row follow from
+// (ppr, j) once a block and a pass, and a pass stages its slots as one range
+// a field at ppr 1, 4-byte copies a slot above it.
+//
 // Rows past one block (16 warps x 8 rows at 4 channels a lane) go to
 // further row chunks on grid axis z, each decoding the pages again.  Heads
 // wider than 256 channels also split into channel chunks on axis z (z = row
@@ -143,15 +154,24 @@ struct AttnArgs {
   unsigned short* out;           // the tail form only: (B, n_kv, groups, hd) bf16 bits
   short* out_k;  // decode_pages only: (B, n_valid, P) bf16 bits
   short* out_v;
-  int B, S, n_valid, splits, run, n_kv, groups, hd, pt, N;
+  int B, S, n_valid, splits, run, n_kv, groups, hd, pt, N;  // S, n_valid, run: tokens where ppr > 1
   // ring mode and the tail form: pos / pt and the first position that counts
   // (pos - window + 1; 0 for a full layer); the tail form: the query's position
   int cur, lo, pos;
   int ts;                 // token slices of the attention step: token_slices, by unpack_params
+  int ppr;                // page slots a row spans (row_pages), by unpack_params; 0: refused
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// page slots a row of n_kv * hd words spans: 1 where it fits in a page of P,
+// else row / P where that is whole and a page holds whole heads; 0 otherwise
+__host__ __device__ inline int row_pages(int n_kv, int hd, int P) {
+  const int row = n_kv * hd;
+  if (row <= P) return 1;
+  return P > 0 && hd > 0 && row % P == 0 && P % hd == 0 ? row / P : 0;
+}
 
 // channels per lane: the power of two with 32 * cpl >= hd (0 if hd > 256)
 __host__ __device__ inline int cpl_of(int hd) {
@@ -223,7 +243,8 @@ __host__ __device__ inline size_t words_bytes(int P, int N, int ts, size_t R, in
   return words > fold ? words : fold;
 }
 
-// Dynamic shared memory of one block, in carve order: q (R x hd), m, l,
+// Dynamic shared memory of one block, in carve order (kg: the rows of a
+// page's heads): q (R x hd), m, l,
 // alpha, p (ts x R x kTile: each token slice its own), the code table
 // (table_len + 2), class 0's mask of the first 32 codes, the profiles' caps
 // and lane offsets (2 x np x nc), per-page caps and lane offsets, per-class
@@ -263,7 +284,7 @@ struct AttnSmem {
 
 __device__ AttnSmem carve(int* smem, const AttnArgs& a) {
   AttnSmem s;
-  const int kg = a.n_kv * a.groups, R = chunk_rows(kg, a.hd);
+  const int kg = a.n_kv / a.ppr * a.groups, R = chunk_rows(kg, a.hd);
   const int ts = a.ts, SR = ts * R;
   const int pages = 2 * a.N;
   char* c = reinterpret_cast<char*>(smem);
@@ -309,29 +330,49 @@ __device__ __forceinline__ void stage_range(int* dst, const int* src, int n) {
   }
 }
 
-// Start copying the K and V blobs of page slots [slot, slot + n_s) of one
-// batch row (row0 = b * S) into a staged pass.  Single-profile configs
-// stage profile 0.
-__device__ void stage_pass(const AttnArgs& a, const StageLayout& L, size_t row0, int slot,
-                           int n_s, int* buf) {
+// Start copying n rows of len ints, each ppr * len apart, into consecutive
+// rows: 4-byte copies, for the slots of a multipage row's head group.
+__device__ __forceinline__ void stage_rows(int* dst, const int* src, int n, int len, int ppr) {
+  const size_t stride = static_cast<size_t>(ppr) * len;
+  for (int e = threadIdx.x; e < n * len; e += blockDim.x) {
+    const int r = e / len;
+    cp_async4(dst + e, src + r * stride + (e - r * len));
+  }
+}
+
+// Start copying the K and V blobs of n_s page slots, the first at `page`
+// and each a.ppr after the one before (head group hg's slots of consecutive
+// tokens where a row spans ppr slots; consecutive slots at ppr 1), into a
+// staged pass, each field's slots consecutive: at ppr 1 one range a field,
+// else one a slot.  Single-profile configs stage profile 0.
+__device__ void stage_pass(const AttnArgs& a, const StageLayout& L, size_t page, int n_s,
+                           int* buf) {
   const PageGeom& g = a.g;
-  const size_t page = row0 + slot;
+  const int ppr = a.ppr;
   for (int side = 0; side < 2; ++side) {
     const BlobPtrs& f = side ? a.v : a.k;
     int* dst = buf + side * L.side;
-    stage_range(dst, f.ptrs + page * g.ptr_lanes, n_s * g.ptr_lanes);
-    stage_range(dst + L.o_dl, f.deltas + page * g.delta_lanes, n_s * g.delta_lanes);
-    stage_range(dst + L.o_ov, f.out_vals + page * g.outlier_cap, n_s * g.outlier_cap);
-    stage_range(dst + L.o_oi, f.out_idx + page * g.outlier_cap, n_s * g.outlier_cap);
+    if (ppr == 1) {
+      stage_range(dst, f.ptrs + page * g.ptr_lanes, n_s * g.ptr_lanes);
+      stage_range(dst + L.o_dl, f.deltas + page * g.delta_lanes, n_s * g.delta_lanes);
+      stage_range(dst + L.o_ov, f.out_vals + page * g.outlier_cap, n_s * g.outlier_cap);
+      stage_range(dst + L.o_oi, f.out_idx + page * g.outlier_cap, n_s * g.outlier_cap);
+    } else {
+      stage_rows(dst, f.ptrs + page * g.ptr_lanes, n_s, g.ptr_lanes, ppr);
+      stage_rows(dst + L.o_dl, f.deltas + page * g.delta_lanes, n_s, g.delta_lanes, ppr);
+      stage_rows(dst + L.o_ov, f.out_vals + page * g.outlier_cap, n_s, g.outlier_cap, ppr);
+      stage_rows(dst + L.o_oi, f.out_idx + page * g.outlier_cap, n_s, g.outlier_cap, ppr);
+    }
   }
   const int t = threadIdx.x;
   if (t < 2 * n_s) {
     const int side = t >= n_s, j = t - side * n_s;
     const BlobPtrs& f = side ? a.v : a.k;
     int* dst = buf + side * L.side;
-    cp_async4(dst + L.o_n + j, f.n_out + page + j);
+    const size_t p = page + static_cast<size_t>(j) * ppr;
+    cp_async4(dst + L.o_n + j, f.n_out + p);
     if (f.profile) {
-      cp_async4(dst + L.o_pid + j, f.profile + page + j);
+      cp_async4(dst + L.o_pid + j, f.profile + p);
     } else {
       dst[L.o_pid + j] = 0;
     }
@@ -560,12 +601,13 @@ __device__ void decode_pass(const AttnArgs& a, const AttnSmem& s, const StageLay
 }
 
 // Stage the code table, then walk page slots [first, last) of batch row b in
-// passes of N: stage the next pass while this one decodes, then hand the
-// decoded pass to body(slot0, n_s).  body must not sync the block: the next
-// pass's first barrier is what keeps its reads ahead of the next decode.
+// passes of N (of head group hg's slots where a row spans ppr of them): stage
+// the next pass while this one decodes, then hand the decoded pass to
+// body(slot0, n_s).  body must not sync the block: the next pass's first
+// barrier is what keeps its reads ahead of the next decode.
 template <class Body>
-__device__ __forceinline__ void run_passes(const AttnArgs& a, const AttnSmem& s, int b, int first, int last,
-                           Body body) {
+__device__ __forceinline__ void run_passes(const AttnArgs& a, const AttnSmem& s, int b, int hg,
+                                           int first, int last, Body body) {
   const StageLayout L = stage_layout(a.N, a.g.ptr_lanes, a.g.delta_lanes, a.g.outlier_cap);
   const int nb = a.g.num_bases;
   for (int j = threadIdx.x; j < a.g.table_len + 2; j += blockDim.x) {
@@ -584,10 +626,11 @@ __device__ __forceinline__ void run_passes(const AttnArgs& a, const AttnSmem& s,
     for (int code = 0; code < min(nb, 32); ++code) m |= (a.cls[code] == 0 ? 1u : 0u) << code;
     *s.cmask = m;
   }
-  const size_t row0 = static_cast<size_t>(b) * a.S;
+  // token slot t of the row is page slot base + t * ppr
+  const size_t base = static_cast<size_t>(b) * a.S * a.ppr + hg;
   const int pass_ints = 2 * L.side;
   if (first < last) {
-    stage_pass(a, L, row0, first, min(a.N, last - first), s.stage);
+    stage_pass(a, L, base + static_cast<size_t>(first) * a.ppr, min(a.N, last - first), s.stage);
     cp_async_commit();
   }
   for (int s0 = first, it = 0; s0 < last; s0 += a.N, ++it) {
@@ -596,7 +639,7 @@ __device__ __forceinline__ void run_passes(const AttnArgs& a, const AttnSmem& s,
     if (s0 + a.N < last) {
       // the other buffer was last read by the previous pass's decode, which
       // every thread left behind that decode's final barrier
-      stage_pass(a, L, row0, s0 + a.N, min(a.N, last - s0 - a.N),
+      stage_pass(a, L, base + static_cast<size_t>(s0 + a.N) * a.ppr, min(a.N, last - s0 - a.N),
                  s.stage + ((it + 1) & 1) * pass_ints);
       cp_async_commit();
       cp_async_wait<1>();
@@ -824,13 +867,17 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   const AttnSmem s = carve(smem, a);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, split = blockIdx.x;
-  const int kg = a.n_kv * a.groups, hd = a.hd, rowlen = a.n_kv * hd;
-  // row chunk and channel chunk; the channels [c0, c0 + hc) this block owns
-  const int n_cc = WIDE ? chan_chunks(hd) : 1;
-  const int rz = WIDE ? blockIdx.z / n_cc : blockIdx.z, cc = WIDE ? blockIdx.z - rz * n_cc : 0;
+  const int kg = a.n_kv * a.groups, hd = a.hd;
+  // a page's heads and rows: all of them, or head group hg's of a multipage row
+  const int kvp = a.n_kv / a.ppr, kgp = kvp * a.groups, rowlen = kvp * hd;
+  // head group, row chunk and channel chunk; the channels [c0, c0 + hc) this block owns
+  const int n_cc = WIDE ? chan_chunks(hd) : 1, cr = chunk_rows(kgp, hd);
+  const int zg = (kgp + cr - 1) / cr * n_cc;  // blocks on axis z a head group
+  const int hg = blockIdx.z / zg, zl = blockIdx.z - hg * zg;
+  const int rz = WIDE ? zl / n_cc : zl, cc = WIDE ? zl - rz * n_cc : 0;
   const int c0 = cc * kChunkChannels, hc = WIDE ? min(kChunkChannels, hd - c0) : hd;
-  const int r0 = rz * chunk_rows(kg, hd);  // first row of this chunk
-  const int R = min(chunk_rows(kg, hd), kg - r0);
+  const int r0 = hg * kgp + rz * cr;  // first row of this chunk, of the call's kg
+  const int R = min(cr, (hg + 1) * kgp - r0);
   // token slice `slice` of ts takes tiles slice, slice + ts, ...; its wps
   // warps share the chunk's rows, rpw a warp
   const int ts = a.ts, wps = kAttnWarps / ts;
@@ -838,7 +885,9 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   const int rpw = (R + wps - 1) / wps;
   const int wr0 = ws * rpw;  // this warp's first row in the chunk
   const int n_rows = max(0, min(rpw, R - wr0));
-  const int kv_first = (r0 + wr0) / a.groups, g_first = r0 + wr0 - kv_first * a.groups;
+  // the warp's first row's kv head in the page (its head group's) and group
+  const int kv_row = (r0 + wr0) / a.groups, g_first = r0 + wr0 - kv_row * a.groups;
+  const int kv_first = kv_row - hg * kvp;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
 
   const float* qb = a.q + (static_cast<size_t>(b) * kg + r0) * hd;
@@ -858,7 +907,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   const unsigned short* kside = s.words;
   const unsigned short* vside = s.words + static_cast<size_t>(a.N) * a.g.P;
 
-  run_passes(a, s, b, first, last, [&]([[maybe_unused]] int s0, int n_s) {
+  run_passes(a, s, b, hg, first, last, [&]([[maybe_unused]] int s0, int n_s) {
     const int T = n_s * a.pt;
     for (int t0 = slice * kTile; t0 < T; t0 += ts * kTile) {
       bool live = false;
@@ -937,20 +986,21 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
 }
 
 // The batched pass decode alone, for holding it bit for bit against the
-// decode kernel: writes the 16-bit words of page slots [0, n_valid) of
-// every batch row, split into runs as the attention splits them.
+// decode kernel: writes the 16-bit words of the slots of tokens [0, n_valid)
+// of every batch row (slot t * ppr + hg by head group hg, on grid axis z),
+// split into runs as the attention splits them.
 __global__ void __launch_bounds__(kAttnThreads, 1) decode_pages_kernel(AttnArgs a) {
   extern __shared__ int smem[];
   const AttnSmem s = carve(smem, a);
-  const int b = blockIdx.y, P = a.g.P;
+  const int b = blockIdx.y, hg = blockIdx.z, P = a.g.P;
   const int first = blockIdx.x * a.run, last = min(a.n_valid, first + a.run);
   const float inv_p = 1.0f / static_cast<float>(P);
-  run_passes(a, s, b, first, last, [&](int s0, int n_s) {
+  run_passes(a, s, b, hg, first, last, [&](int s0, int n_s) {
     for (int j = threadIdx.x; j < 2 * n_s * P; j += blockDim.x) {
       const int pg = div_exact(j, P, inv_p), p = j - pg * P;
       const int side = pg >= n_s, slot = pg - side * n_s;
       short* out = side ? a.out_v : a.out_k;
-      out[(static_cast<size_t>(b) * a.n_valid + s0 + slot) * P + p] =
+      out[((static_cast<size_t>(b) * a.n_valid + s0 + slot) * a.ppr + hg) * P + p] =
           static_cast<short>(s.words[buffer_page(pg, n_s, a.N) * P + p]);
     }
   });
@@ -1054,7 +1104,8 @@ AttnArgs unpack_params(const int* ip) {
   a.hd = x[7];
   a.pt = x[8];
   a.N = x[9];
-  a.ts = token_slices(a.n_kv * a.groups, a.hd, a.N * a.pt);
+  a.ppr = row_pages(a.n_kv, a.hd, ip[1]);
+  a.ts = token_slices(a.n_kv / (a.ppr > 1 ? a.ppr : 1) * a.groups, a.hd, a.N * a.pt);
   return a;
 }
 
@@ -1084,10 +1135,12 @@ AttnArgs unpack(const long long* ptr, const int* ip, bool tail = false) {
   return a;
 }
 
+// the block's rows are those of a page's heads: n_kv / ppr of them a row
 size_t smem_of(const int* ip) {
   const int* x = ip + kPageParams;
-  return attn_smem_bytes(ip[1], ip[8], ip[9], ip[10], ip[4], ip[5], ip[6], x[5] * x[6], x[7], x[9],
-                         x[8]);
+  const int rp = row_pages(x[5], x[7], ip[1]), ppr = rp > 1 ? rp : 1;
+  return attn_smem_bytes(ip[1], ip[8], ip[9], ip[10], ip[4], ip[5], ip[6], x[5] / ppr * x[6], x[7],
+                         x[9], x[8]);
 }
 
 using Kernel = void (*)(AttnArgs);
@@ -1105,19 +1158,21 @@ Kernel attn_kernel_for(int hd) {
 }
 
 // 0, or -1 (no fit in shared memory), -2 (head_dim below 1), -3 (not
-// 16-bit words), -4 (pass size outside 1..8)
+// 16-bit words), -4 (pass size outside 1..8), -5 (a row wider than a page
+// that is not whole pages of whole heads, or such a row in a ring)
 int check(const AttnArgs& a, size_t smem) {
   if (smem > static_cast<size_t>(kSmemLimit)) return -1;
   if (a.hd < 1) return -2;
   if (a.g.word_bits != 16) return -3;
   if (a.N < 1 || a.N > kMaxPassSlots) return -4;
+  if (a.ppr < 1) return -5;
   return 0;
 }
 
-// blocks on grid axis z: row chunks x channel chunks
+// blocks on grid axis z: head groups x row chunks x channel chunks
 int z_chunks(const AttnArgs& a) {
-  const int kg = a.n_kv * a.groups, R = chunk_rows(kg, a.hd);
-  return (R ? (kg + R - 1) / R : 1) * chan_chunks(a.hd);
+  const int kg = a.n_kv / a.ppr * a.groups, R = chunk_rows(kg, a.hd);
+  return a.ppr * (R ? (kg + R - 1) / R : 1) * chan_chunks(a.hd);
 }
 
 template <bool RING>
@@ -1141,6 +1196,7 @@ int launch(const AttnArgs& a, const int* ip, void* stream) {
   const size_t smem = smem_of(ip);
   const int rc = check(a, smem);
   if (rc) return rc;
+  if (RING && a.ppr > 1) return -5;
   if (a.B == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Kernel k = attn_kernel_for<RING>(a.hd);
@@ -1222,7 +1278,7 @@ extern "C" int gbdi_paged_attn_decode_launch(const long long* ptr, const int* ip
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_pages_kernel<<<dim3(a.splits, a.B), kAttnThreads, smem,
+  decode_pages_kernel<<<dim3(a.splits, a.B, a.ppr), kAttnThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

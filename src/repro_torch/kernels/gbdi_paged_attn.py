@@ -20,11 +20,20 @@ attention step runs in token slices, :func:`token_slices`) and records its
 host work as the span ``paged_attn``; for tensors on the CPU it runs
 :func:`paged_attention_decode_plain`, and for any other device it raises.
 Both paths first take the call's geometry once (:func:`attn_geometry`:
-16-bit words, whole ``Kv * hd`` rows in a page, and :func:`check_smem`,
-where the reference's VMEM check stood, which fixes the page slots a pass
-decodes); on the card a :class:`LaunchPlan` adds the grid.
-:func:`decode_pages` exposes that batched decode alone, so it can be held
-bit for bit against the decode kernel.
+16-bit words, whole ``Kv * hd`` rows in a page or a row over whole page
+slots (:func:`attn_layout`), and :func:`check_smem`, where the reference's
+VMEM check stood, which fixes the page slots a pass decodes); on the card a
+:class:`LaunchPlan` adds the grid.  :func:`decode_pages` exposes that
+batched decode alone, so it can be held bit for bit against the decode
+kernel.
+
+A row wider than a page (``Kv * hd = ppr * page_words``, each page whole
+heads) spans ``ppr`` slots: slot ``t * ppr + j`` holds heads ``[j * Kv /
+ppr, (j + 1) * Kv / ppr)`` of token ``t``, as the KV cache writes it, and a
+page holds one token (``pt`` 1).  The kernel then attends each head group
+``j`` in blocks of its own (grid axis z), which decode only that group's
+slots, so every slot is still decoded once; such launches are counted in
+``launches.attn_multipage`` too.
 
 :func:`paged_attention_decode_tail` is the whole of a decode step's
 attention: the pages' state, then the raw tail ring (the current partial
@@ -60,7 +69,7 @@ import torch
 from repro_torch import obs
 from repro_torch._device import upload
 from repro_torch.core.format import WORD16_MASK, TableLike, as_base_table
-from repro_torch.core.gbdi_fr import FRConfig, flat_blob, fr_decode, words_to_bf16
+from repro_torch.core.gbdi_fr import FRConfig, flat_blob, fr_decode, page_layout, words_to_bf16
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdi_encode import (
     MAX_CLASSES,
@@ -95,14 +104,22 @@ CHUNK_CHANNELS = 256
 MAX_WAVES = 8
 
 
+def attn_layout(cfg: FRConfig, n_kv: int, hd: int) -> tuple[int, int]:
+    """``(pt, ppr)`` of a row of ``n_kv`` heads of ``hd`` words
+    (:func:`~repro_torch.core.gbdi_fr.page_layout`, which raises unless the
+    row and the page divide one another), raising unless every page holds
+    whole heads: a block attends for the heads of the slots it decodes."""
+    if n_kv < 1 or hd < 1 or cfg.page_words % hd:
+        raise ValueError(f"paged attention needs whole heads in a page: {cfg.page_words} "
+                         f"words are not a whole number of {hd}-word heads")
+    return page_layout(cfg, n_kv * hd)
+
+
 def page_tokens(cfg: FRConfig, n_kv: int, hd: int) -> int:
-    """Tokens per page; raises unless a page holds whole ``Kv * hd`` rows."""
-    row = n_kv * hd
-    if row <= 0 or cfg.page_words % row:
-        raise ValueError(
-            f"paged attention needs page_words ({cfg.page_words}) to hold a whole "
-            f"number of Kv*hd = {row} rows")
-    return cfg.page_words // row
+    """Tokens per page slot: ``page_words // (Kv * hd)``, or 1 where a row
+    spans several slots (:func:`attn_layout`, which raises for any other
+    row)."""
+    return attn_layout(cfg, n_kv, hd)[0]
 
 
 def channels_per_lane(hd: int) -> int:
@@ -165,11 +182,13 @@ def smem_bytes(cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
     lane offsets, and each page's; per-class counts of each 128-word group;
     the decoded pass as bf16, or the slices' float32 fold laid over it where
     that is larger; and two staged passes (K and V sides, each field of the
-    pass contiguous)."""
-    pt = page_tokens(cfg, n_kv, hd)
+    pass contiguous).  The rows are those of a page's heads: ``n_kv / ppr``
+    of them where a row spans ``ppr`` slots (:func:`attn_layout`)."""
+    pt, ppr = attn_layout(cfg, n_kv, hd)
     n = pass_slots(cfg, n_kv=n_kv, hd=hd, groups=groups) if n_slots is None else n_slots
-    R = chunk_rows(n_kv * groups, hd)
-    ts = token_slices(n_kv * groups, hd, n * pt)
+    kg = n_kv // ppr * groups
+    R = chunk_rows(kg, hd)
+    ts = token_slices(kg, hd, n * pt)
     pages = 2 * n
     groups_per_page = cfg.page_words // GROUP_WORDS
     a4 = lambda x: -(-x // 4) * 4  # noqa: E731
@@ -209,8 +228,9 @@ def check_smem(cfg: FRConfig, *, n_kv: int, hd: int, groups: int) -> int:
 
 class AttnGeometry(NamedTuple):
     """What a call derives from ``(cfg, n_kv, hd, groups)`` (:func:`attn_geometry`):
-    tokens a page, page slots a pass, row chunks times channel chunks (the
-    grid's third axis) and token slices (:func:`token_slices`)."""
+    tokens a page, page slots a pass, head groups times row chunks times
+    channel chunks (the grid's third axis), token slices (:func:`token_slices`)
+    and the page slots a row spans (:func:`attn_layout`)."""
 
     cfg: FRConfig
     n_kv: int
@@ -220,21 +240,29 @@ class AttnGeometry(NamedTuple):
     pass_n: int
     chunks: int
     ts: int
+    ppr: int
 
 
-def attn_geometry(cfg: FRConfig, *, n_kv: int, hd: int, groups: int) -> AttnGeometry:
+def attn_geometry(cfg: FRConfig, *, n_kv: int, hd: int, groups: int,
+                  window: int = 0) -> AttnGeometry:
     """The call's checked geometry: bf16 pages (16-bit words), whole rows in
-    a page and a block that fits (:func:`check_smem`, which picks the pass
-    size and alone bounds the head dim), then the chunks and token slices.
-    Both paths take it, so the CPU's answer is the card's."""
+    a page or a row over whole page slots (:func:`attn_layout`; a window
+    layer only the first) and a block that fits (:func:`check_smem`, which
+    picks the pass size and alone bounds the head dim), then the chunks and
+    token slices over a page's heads.  Both paths take it, so the CPU's
+    answer is the card's."""
     if cfg.word_bits != 16:
         raise ValueError(f"the paged-attention kernel reads 16-bit (bf16) KV pages, "
                          f"not word_bits={cfg.word_bits}")
+    pt, ppr = attn_layout(cfg, n_kv, hd)
+    if window and ppr > 1:
+        raise ValueError(f"a window layer's ring needs whole rows in a page; a row of "
+                         f"Kv*hd = {n_kv * hd} words spans {ppr} page slots")
     pass_n = check_smem(cfg, n_kv=n_kv, hd=hd, groups=groups)
-    pt, kg = page_tokens(cfg, n_kv, hd), n_kv * groups
+    kg = n_kv // ppr * groups
     return AttnGeometry(cfg, n_kv, hd, groups, pt, pass_n,
-                        -(-kg // chunk_rows(kg, hd)) * channel_chunks(hd),
-                        token_slices(kg, hd, pass_n * pt))
+                        ppr * -(-kg // chunk_rows(kg, hd)) * channel_chunks(hd),
+                        token_slices(kg, hd, pass_n * pt), ppr)
 
 
 def inv_sqrt(hd: int, device: torch.device | str) -> torch.Tensor:
@@ -346,10 +374,12 @@ def paged_attention_decode_plain(
     chunks with :func:`merge_softmax`.  Chunks past ``pos // pt`` hold no
     valid token and are not decoded (merging them would change nothing).
     ``window``: the slots are a ring, each token masked by its page's
-    position (:func:`ring_bounds`), as the kernel's ring instantiation.
+    position (:func:`ring_bounds`), as the kernel's ring instantiation.  A
+    row over ``ppr`` slots: ``S`` counts tokens, and a chunk decodes its
+    tokens' ``ppr`` slots each, whose words are the rows in order.
     """
-    pt = page_tokens(cfg, n_kv, hd)
-    B, S = pages_k["ptrs"].shape[:2]
+    pt, ppr = attn_layout(cfg, n_kv, hd)
+    B, S = _slot_groups(pages_k, ppr)
     dev = q.device
     qf = q.reshape(B, n_kv, groups, hd).float()
     scale = inv_sqrt(hd, dev)
@@ -361,7 +391,7 @@ def paged_attention_decode_plain(
     bt = as_base_table(plain_table(table), default_width=cfg.widest_bits, device=dev)
 
     def decode(pages: dict[str, torch.Tensor], s0: int, s1: int) -> torch.Tensor:
-        blob = flat_blob({k: v[:, s0:s1] for k, v in pages.items()})
+        blob = flat_blob({k: v[:, s0 * ppr:s1 * ppr] for k, v in pages.items()})
         return words_to_bf16(fr_decode(blob, bt, cfg)).float().reshape(B, (s1 - s0) * pt, n_kv, hd)
 
     for s0 in range(0, n_valid, chunk_slots):
@@ -396,10 +426,13 @@ def attn_iparams(cfg: FRConfig, *, n_kv: int, hd: int, groups: int, batch: int =
                  n_slots: int = 1, n_valid: int = 1, splits: int = 1, run: int = 1,
                  pass_n: int | None = None) -> list[int]:
     """Scalar parameters in the order the kernel's ``unpack_params`` reads
-    them; ``pass_n`` defaults to :func:`pass_slots`."""
+    them; ``pass_n`` defaults to :func:`pass_slots`.  ``n_slots`` and
+    ``n_valid`` count tokens where a row spans several page slots: the
+    kernel derives the slots a row spans from ``n_kv * hd`` and the page."""
     n = pass_slots(cfg, n_kv=n_kv, hd=hd, groups=groups) if pass_n is None else pass_n
-    return kernel_iparams(cfg, batch * n_slots) + [
-        batch, n_slots, n_valid, splits, run, n_kv, groups, hd, page_tokens(cfg, n_kv, hd), n]
+    pt, ppr = attn_layout(cfg, n_kv, hd)
+    return kernel_iparams(cfg, batch * n_slots * ppr) + [
+        batch, n_slots, n_valid, splits, run, n_kv, groups, hd, pt, n]
 
 
 def _splits(n_valid: int, batch: int, *, sms: int, per_sm: int, pass_n: int,
@@ -511,7 +544,7 @@ def paged_attention_decode(
         with obs.span("paged_attn"):
             return _attend_cuda(q, pages_k, pages_v, table, pos, cfg, n_kv=n_kv, hd=hd,
                                 groups=groups, window=window)
-    attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups, window=window)
     if dev.type != "cpu":
         raise ValueError(f"paged_attention_decode runs on cuda (kernel) or cpu (plain), not {dev}")
     return paged_attention_decode_plain(q, pages_k, pages_v, table, pos, cfg,
@@ -552,11 +585,11 @@ def _attend_cuda(
 ):
     """C's launch on the card: the state ``(acc, m, l)``, or with ``tail =
     (k_tail, v_tail)`` the tail form's bf16 output."""
-    geom = attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
+    geom = attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups, window=window)
     dev = pages_k["ptrs"].device
-    B, S = pages_k["ptrs"].shape[:2]
-    blob_k = blob_ptrs(pages_k, cfg, (B, S), side="k ")
-    blob_v = blob_ptrs(pages_v, cfg, (B, S), side="v ")
+    B, S = _slot_groups(pages_k, geom.ppr)
+    blob_k = blob_ptrs(pages_k, cfg, (B, S * geom.ppr), side="k ")
+    blob_v = blob_ptrs(pages_v, cfg, (B, S * geom.ppr), side="v ")
     q = q.reshape(B, n_kv, groups, hd)
     if q.device != dev:
         raise ValueError(f"q lies on {q.device}, the pages on {dev}")
@@ -599,7 +632,18 @@ def _attend_cuda(
             obs.count("launches.attn_sliced")
         if tail is not None:
             obs.count("launches.attn_tail")
+        if geom.ppr > 1:
+            obs.count("launches.attn_multipage")
     return res
+
+
+def _slot_groups(pages: dict[str, torch.Tensor], ppr: int) -> tuple[int, int]:
+    """``(B, S)`` of a side's slots in groups of a row's ``ppr`` slots,
+    raising where a row's slots are not whole."""
+    B, S = pages["ptrs"].shape[:2]
+    if S % ppr:
+        raise ValueError(f"{S} page slots a row do not hold whole rows of {ppr} slots")
+    return B, S // ppr
 
 
 def _check_tail(t: torch.Tensor, shape: tuple[int, ...], dev: torch.device) -> torch.Tensor:
@@ -616,31 +660,34 @@ def decode_pages(
     table: TableLike | PreparedTable, n_valid: int, cfg: FRConfig, *, n_kv: int, hd: int,
     groups: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The words of page slots ``[0, n_valid)`` of every batch row, K and V,
-    as int32 ``(B, n_valid, page_words)``: on a CUDA device, from the
-    kernel's own batched pass decode (split and staged exactly as the
-    attention splits them); on the CPU, from :func:`fr_decode`.  It exists
-    to hold that decode bit for bit against the decode kernel, and counts
-    no launch."""
+    """The words of the page slots of tokens ``[0, n_valid)`` (slots ``[0,
+    n_valid)`` where a page holds whole rows; ``ppr`` slots a token where a
+    row spans several) of every batch row, K and V, as int32 ``(B, n_valid
+    * ppr, page_words)`` in slot order: on a CUDA device, from the kernel's
+    own batched pass decode (split and staged exactly as the attention
+    splits them, each head group's slots by its own blocks); on the CPU,
+    from :func:`fr_decode`.  It exists to hold that decode bit for bit
+    against the decode kernel, and counts no launch."""
     geom = attn_geometry(cfg, n_kv=n_kv, hd=hd, groups=groups)
-    B, S = pages_k["ptrs"].shape[:2]
+    B, S = _slot_groups(pages_k, geom.ppr)
     n_valid = max(0, min(S, int(n_valid)))
+    n_out = n_valid * geom.ppr
     dev = pages_k["ptrs"].device
     if dev.type == "cpu":
         bt = as_base_table(plain_table(table), default_width=cfg.widest_bits, device=dev)
 
         def plain(pages: dict[str, torch.Tensor]) -> torch.Tensor:
-            blob = flat_blob({k: v[:, :n_valid] for k, v in pages.items()})
-            return fr_decode(blob, bt, cfg).reshape(B, n_valid, cfg.page_words)
+            blob = flat_blob({k: v[:, :n_out] for k, v in pages.items()})
+            return fr_decode(blob, bt, cfg).reshape(B, n_out, cfg.page_words)
 
         return plain(pages_k), plain(pages_v)
     if dev.type != "cuda":
         raise ValueError(f"decode_pages runs on cuda (kernel) or cpu (plain), not {dev}")
-    blob_k = blob_ptrs(pages_k, cfg, (B, S), side="k ")
-    blob_v = blob_ptrs(pages_v, cfg, (B, S), side="v ")
+    blob_k = blob_ptrs(pages_k, cfg, (B, S * geom.ppr), side="k ")
+    blob_v = blob_ptrs(pages_v, cfg, (B, S * geom.ppr), side="v ")
     plan = _launch_plan(geom, B, S, n_valid, dev)
     keep, table_ptrs = _table_ptrs(table, cfg, dev)
-    out_k, out_v = (torch.empty(B, n_valid, cfg.page_words, dtype=torch.int16, device=dev)
+    out_k, out_v = (torch.empty(B, n_out, cfg.page_words, dtype=torch.int16, device=dev)
                     for _ in "kv")
     ptrs = _build.ptr_array([*blob_k, *blob_v, *table_ptrs, out_k.data_ptr(), out_v.data_ptr()])
     with torch.cuda.device(dev):
@@ -652,8 +699,8 @@ def decode_pages(
 
 
 __all__ = [
-    "MASKED", "AttnGeometry", "LaunchPlan", "attn_geometry", "attn_iparams", "channel_chunks",
-    "check_smem", "chunk_rows", "decode_pages", "inv_sqrt",
+    "MASKED", "AttnGeometry", "LaunchPlan", "attn_geometry", "attn_iparams", "attn_layout",
+    "channel_chunks", "check_smem", "chunk_rows", "decode_pages", "inv_sqrt",
     "merge_softmax", "page_tokens", "pass_slots", "paged_attention_decode",
     "paged_attention_decode_plain", "paged_attention_decode_tail",
     "paged_attention_decode_tail_plain", "ring_bounds", "smem_bytes", "softmax_chunk",

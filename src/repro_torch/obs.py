@@ -40,6 +40,7 @@ COUNTERS = (
     "launches.attn",      # kernel C launches
     "launches.attn_sliced",  # of those, launches whose attention runs in token slices
     "launches.attn_tail",    # of those, launches whose merge took the raw tail (the tail form)
+    "launches.attn_multipage",  # of those, launches over rows that span several page slots
     "table_prep.hit",     # prepared-table memo hits
     "table_prep.miss",    # and misses
     "words.encoded",      # words the KV cache encoded into page slots

@@ -14,8 +14,10 @@ Layout per attention layer (structure of arrays, static shapes):
   [k_dec/v_dec (B, n_pages*page_tokens, Kv, hd) bf16 with resident_decode]
 
 ``n_slots = n_pages * pages_per_row``; a row wider than a page
-(``pages_per_row > 1``) fills several slots per token.  A page holds
-``page_tokens = page_words // (Kv*hd)`` consecutive tokens' K (or V).
+(``pages_per_row > 1``) fills several slots per token: slot ``t * ppr + j``
+holds heads ``[j * Kv / ppr, (j + 1) * Kv / ppr)`` of token ``t``, the row's
+words in order.  Otherwise a page holds ``page_tokens = page_words //
+(Kv*hd)`` consecutive tokens' K (or V).
 
 A sliding-window layer (``KVSpec.window = W``; a query at ``pos`` attends
 over ``[pos - W + 1, pos]``, as ``models/layers.py``'s mask) keeps its pages
@@ -62,6 +64,7 @@ from repro_torch.core.gbdi_fr import (
     bf16_to_words,
     flat_blob,
     lead_blob,
+    page_layout,
     words_to_bf16,
 )
 from repro_torch.kernels import ops
@@ -121,14 +124,11 @@ class KVSpec:
 
     @property
     def page_tokens(self) -> int:
-        P, row = self.fr.page_words, self.row_words
-        if P % row and row % P:
-            raise ValueError(f"a {P}-word page and a {row}-word row must divide one another")
-        return max(1, P // row)
+        return page_layout(self.fr, self.row_words)[0]
 
     @property
     def pages_per_row(self) -> int:
-        return max(1, self.row_words // self.fr.page_words)
+        return page_layout(self.fr, self.row_words)[1]
 
     @property
     def n_positions(self) -> int:
@@ -346,12 +346,18 @@ def attention_decode(spec: KVSpec, q: torch.Tensor, cache: Cache, pos: int,
     pages and the raw tail with the paged-attention kernel, which merges the
     two by the streaming-softmax identity
     (:func:`~repro_torch.kernels.gbdi_paged_attn.paged_attention_decode_tail`);
-    it needs whole rows in a page.  ``'auto'``
-    picks the resident region when the cache has one, else ``'paged'``.
+    it takes whole rows in a page, or a row over whole page slots of whole
+    heads (a full layer only).  ``'auto'`` picks the resident region when
+    the cache has one, else ``'paged'``.  A window layer's call runs inside
+    the span ``kv_cache.window``, a multipage row's inside
+    ``kv_cache.multipage``.
     """
     with obs.span("kv_cache.attention_decode"):
         if spec.window:
             with obs.span("kv_cache.window"):
+                return _attention_decode(spec, q, cache, pos, backend)
+        if spec.pages_per_row > 1:
+            with obs.span("kv_cache.multipage"):
                 return _attention_decode(spec, q, cache, pos, backend)
         return _attention_decode(spec, q, cache, pos, backend)
 

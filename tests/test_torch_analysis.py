@@ -868,7 +868,7 @@ def test_smem_report_rows_equal_the_kernel_modules_formulas(report):
     from repro_torch.kernels import gbdi_encode as enc
     from repro_torch.kernels import gbdi_paged_attn as pa
 
-    assert [r.kernel for r in report] == ["gbdi_encode", "gbdi_decode"] * 4 + ["gbdi_paged_attn"] * 6
+    assert [r.kernel for r in report] == ["gbdi_encode", "gbdi_decode"] * 4 + ["gbdi_paged_attn"] * 7
     cfgs = dict(smem_cost.codec_configs())
     for r in report[:8]:
         cfg = cfgs[r.config]
@@ -897,6 +897,9 @@ def test_smem_report_pins_the_known_figures(report):
     assert llama.limit_bytes == 232448
     mixtral = by["gbdi_paged_attn", "KV_FR x mixtral-8x22b (Kv 8, hd 128, G 6)"]
     assert mixtral.pass_slots == 8
+    # a row over two page slots: the block of a page's 16 heads, as at Kv 16
+    deepseek = by["gbdi_paged_attn", "KV_FR x deepseek-7b (Kv 32, hd 128, G 1)"]
+    assert (deepseek.pass_slots, deepseek.smem_bytes) == (8, 191152)
     assert by["gbdi_paged_attn", "KV_FR x hd-512 head (Kv 1, hd 512, G 8)"].entry == \
         "attn_kernelILi8ELb1ELb0EE"
     assert by["gbdi_encode", "16-bit default"].entry == "encode_kernelILi8ELi1EE"
@@ -962,7 +965,7 @@ def test_cli_smem_report_writes_every_row(tmp_path):
     assert rc == 0
     payload = json.loads(out.read_text())
     assert payload["available"] and not payload["on_card"]
-    assert len(payload["kernels"]) == 14 and all(k["ok"] for k in payload["kernels"])
+    assert len(payload["kernels"]) == 15 and all(k["ok"] for k in payload["kernels"])
     assert {k["kernel"] for k in payload["kernels"]} == set(smem_cost.KERNEL_MODULES.values())
 
 

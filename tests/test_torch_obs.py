@@ -213,6 +213,41 @@ def test_window_span_nests_under_attention_decode():
     _check_decode_spans(obs.snapshot())
 
 
+#: a row of 4 x 64 = 256 words over two page slots of 128 words, a token a page
+MULTIPAGE_SPEC = tkv.KVSpec(4, HD, max_len=8, fr=tfr.FRConfig(
+    word_bits=16, page_words=128, num_bases=14, width_set=(8,), bucket_caps=(128,),
+    outlier_cap=16))
+
+
+def test_multipage_span_nests_under_attention_decode():
+    """A layer whose rows span several page slots opens
+    ``kv_cache.multipage`` inside ``kv_cache.attention_decode``, around the
+    tail merge, once a call; on the CPU no launch is counted, so
+    ``launches.attn_multipage`` stays 0 with ``launches.attn``."""
+    spec = MULTIPAGE_SPEC
+    assert spec.pages_per_row == 2 and spec.page_tokens == 1
+    cache = tkv.init_compressed(spec, B, _cache()["table"], device="cpu")
+    g = torch.Generator().manual_seed(5)
+    ks, vs = (torch.randn(4, B, 1, 4, HD, generator=g).to(torch.bfloat16) for _ in "kv")
+    q = torch.randn(B, 1, 8, HD, generator=g)
+    with obs.recording():
+        for s in range(4):
+            tkv.append(spec, cache, ks[s], vs[s], s)
+            tkv.attention_decode(spec, q, cache, s)
+    snap = obs.snapshot()
+    spans = snap["spans"]
+    names = [sp[0] for sp in spans]
+    assert names.count("kv_cache.multipage") == names.count("kv_cache.attention_decode") == 4
+    assert "kv_cache.window" not in names
+    for name, a, b, parent in spans:
+        if name == "kv_cache.multipage":
+            assert spans[parent][0] == "kv_cache.attention_decode"
+            assert spans[parent][1] <= a and b <= spans[parent][2]
+        if name == "kv_cache.tail_merge":
+            assert spans[parent][0] == "kv_cache.multipage"
+    assert snap["counters"]["launches.attn_multipage"] == snap["counters"]["launches.attn"] == 0
+
+
 def test_pages_evicted_counts_flushes_into_a_held_ring_slot():
     """Flushes of the ring's first lap count nothing; each later one counts
     one, whatever the batch, by ``append`` and by ``extend`` alike, and

@@ -237,9 +237,17 @@ def test_geometry_and_device_errors():
     q = torch.zeros(B, 3, 1, 64)
     with pytest.raises(ValueError, match="whole number"):   # 256 % (3 * 64) != 0
         t_pa.paged_attention_decode(q, pages, pages, [0], 3, cfg, n_kv=3, hd=64, groups=1)
-    with pytest.raises(ValueError, match="whole number"):   # a row wider than a page
-        t_pa.page_tokens(cfg, 4, 128)
-    meta = {"ptrs": torch.zeros(B, 2, 1, dtype=torch.int32, device="meta")}
+    # a row of two pages, two heads a page: one token a slot, two slots a row
+    assert t_pa.page_tokens(cfg, 4, 128) == 1 and t_pa.attn_layout(cfg, 4, 128) == (1, 2)
+    for n_kv, hd in ((3, 64), (3, 128), (1, 512)):   # neither way whole, or a head over two pages
+        with pytest.raises(ValueError, match="whole number"):
+            t_pa.attn_layout(cfg, n_kv, hd)
+    # the cache lays a 512-word head over two slots; only the attention needs whole heads
+    from repro_torch.serving import kv_cache as tkv
+
+    spec = tkv.KVSpec(1, 512, max_len=8, fr=cfg)
+    assert tfr.page_layout(cfg, 512) == (1, 2) == (spec.page_tokens, spec.pages_per_row)
+    meta ={"ptrs": torch.zeros(B, 2, 1, dtype=torch.int32, device="meta")}
     with pytest.raises(ValueError, match="cuda"):
         t_pa.paged_attention_decode(q[:, :2], meta, meta, [0], 3, cfg, n_kv=2, hd=64, groups=1)
 
@@ -281,6 +289,7 @@ PHASE5 = {
     "4-token-pages": (KV_FR, 4, 128, 8, 8, 4),
     "adaptive": (ADAPTIVE_2048, 8, 128, 4, 8, 2),
     "small-page": (FR8, 2, 64, 2, 8, 2),
+    "deepseek-7b": (KV_FR, 32, 128, 1, 8, 1),     # a row over two page slots
 }
 
 
@@ -574,11 +583,197 @@ def test_tail_form_runs_a_given_merge():
 
 
 # ---------------------------------------------------------------------------
+# rows over several page slots (a multipage row), on the CPU
+# ---------------------------------------------------------------------------
+
+#: the tolerances of tests/test_torch_window_kv.py: the tail form rounds its
+#: float32 output to bf16 (half an ulp, 2^-8 of |out|, plus float32 order);
+#: the oracle also rounds the probabilities to bf16 (another 2^-8); the
+#: state form is float32 against float32 in another order.  A gap is
+#: |out - ref| / max(1, |ref|), as the benchmark's.
+TOL_PAGED, TOL_ORACLE, TOL_STATE = 2 ** -8 + 1e-5, 2 ** -7 + 1e-5, 1e-5
+#: ppr -> (page words, n_kv, hd): rows of 2 and 4 pages of 128 words, each
+#: page two heads of 64
+MULTIPAGE = {2: (128, 4, 64), 4: (128, 8, 64)}
+#: the lean of a query toward its own token's key, as a logit (the cells' 8)
+OWN_KEY_LOGIT = 8.0
+
+
+def _multipage_run(ppr, groups, n_tok, seed):
+    """A spec of rows over ``ppr`` page slots, seeded K/V ``(2, B, n_tok,
+    Kv, hd)`` bf16 about per-channel means, their K noise, and a table."""
+    from repro_torch.serving import kv_cache as tkv
+
+    P, n_kv, hd = MULTIPAGE[ppr]
+    fr = tfr.FRConfig(**_single_width(P))
+    spec = tkv.KVSpec(n_kv, hd, max_len=n_tok, fr=fr)
+    assert (spec.pages_per_row, spec.page_tokens) == (ppr, 1)
+    g = torch.Generator().manual_seed(seed)
+    means = torch.randn(2, 1, 1, n_kv, hd, generator=g) * 2
+    kv = (means + 0.1 * torch.randn(2, B, n_tok, n_kv, hd, generator=g)).to(torch.bfloat16)
+    table = tfr.fit_fr_bases(tfr.bf16_to_words(kv).reshape(-1), fr)
+    return SimpleNamespace(spec=spec, kv=kv, noise=kv[0].float() - means[0], table=table, g=g,
+                           groups=groups)
+
+
+def _multipage_query(run, pos):
+    """(B, 1, Kv * G, hd) bf16: N(0, 4^2), leaning toward the key at ``pos``."""
+    _, _, n_kv, hd = run.noise.shape
+    q = torch.randn(B, n_kv, run.groups, hd, generator=run.g) * 4
+    q += OWN_KEY_LOGIT / (0.1 ** 2 * math.sqrt(hd)) * run.noise[:, pos, :, None, :]
+    return q.reshape(B, 1, n_kv * run.groups, hd).to(torch.bfloat16)
+
+
+def _gap(out, ref):
+    return float(((out.reshape(ref.shape).float() - ref).abs() / ref.abs().clamp_min(1.0)).max())
+
+
+def _swap_head_groups(pages, ppr):
+    """The page slots with head group ``j`` of every token in the slot of
+    group ``j ^ 1``: a kernel whose group ``j`` read slot ``t * ppr + (1 -
+    j)`` (at ppr 2) would see these."""
+    S = pages["ptrs"].shape[1]
+    j = torch.arange(S) % ppr
+    perm = torch.arange(S) - j + (j ^ 1)
+    return {k: v[:, perm] for k, v in pages.items()}
+
+
+def _multipage_gaps(ppr, groups, seed, swap=False):
+    """A prefix by ``extend``, then an append and every form at each later
+    position, on and off the plain version's chunks of 3 tokens and the
+    kernel's passes of 8: the widest gap of the tail form (``paged``) and
+    of ``oracle`` from the float32 reference over [0, pos], and of the state
+    form's acc / l from it over [0, pos - 1] (the pages before the tail).
+    ``swap``: the attention reads the slots of :func:`_swap_head_groups`."""
+    from repro_torch.serving import kv_cache as tkv
+    from repro_torch.serving.reference import window_attention
+
+    n_tok, prefix = 20, 7
+    run = _multipage_run(ppr, groups, n_tok, seed)
+    spec, kv = run.spec, run.kv
+    P, n_kv, hd = MULTIPAGE[ppr]
+    cache = tkv.init_compressed(spec, B, run.table, device="cpu")
+    worst = {"paged": 0.0, "oracle": 0.0, "state": 0.0}
+    with obs.recording():
+        tkv.extend(spec, cache, kv[0, :, :prefix], kv[1, :, :prefix], 0)
+        for pos in range(prefix, n_tok):
+            tkv.append(spec, cache, kv[0, :, pos:pos + 1], kv[1, :, pos:pos + 1], pos)
+            q = _multipage_query(run, pos)
+            ref = window_attention(q[:, 0], kv[0], kv[1], pos)
+            read = cache
+            if swap:
+                read = dict(cache, k_pages=_swap_head_groups(cache["k_pages"], ppr),
+                            v_pages=_swap_head_groups(cache["v_pages"], ppr))
+            worst["paged"] = max(worst["paged"], _gap(
+                tkv.attention_decode(spec, q, read, pos, backend="paged"), ref))
+            worst["oracle"] = max(worst["oracle"], _gap(
+                tkv.attention_decode(spec, q, cache, pos, backend="oracle"), ref))
+            qg = q.reshape(B, n_kv, groups, hd).float()
+            acc, m, l = t_pa.paged_attention_decode_plain(
+                qg, read["k_pages"], read["v_pages"], run.table, pos, spec.fr, n_kv=n_kv,
+                hd=hd, groups=groups, chunk_slots=3)
+            before = window_attention(q[:, 0], kv[0], kv[1], pos - 1)
+            worst["state"] = max(worst["state"], _gap(acc / l[..., None], before))
+        assert obs.snapshot(spans=False)["counters"]["words.dropped"] == 0
+    return worst
+
+
+@pytest.mark.parametrize("ppr", list(MULTIPAGE))
+@pytest.mark.parametrize("groups", [1, 2])
+def test_multipage_rows_match_the_references(ppr, groups):
+    """Rows over 2 and 4 page slots at G 1 and 2: the tail form (the
+    ``paged`` backend: the plain version's state, then the tail merge) and
+    the state form against the float32 plain reference
+    (``serving.reference.window_attention``, window 0), and the oracle
+    backend against it, each within its rounding."""
+    got = _multipage_gaps(ppr, groups, seed=10 * ppr + groups)
+    assert got["paged"] <= TOL_PAGED, got
+    assert got["oracle"] <= TOL_ORACLE, got
+    assert got["state"] <= TOL_STATE, got
+
+
+@pytest.mark.parametrize("ppr", list(MULTIPAGE))
+def test_multipage_head_group_swap_fails(ppr):
+    """A head group that reads another group's slot of its token misses the
+    references by ten times the tolerance and more, in both forms."""
+    got = _multipage_gaps(ppr, 1, seed=7 * ppr, swap=True)
+    assert got["paged"] >= 10 * TOL_PAGED, got
+    assert got["state"] >= 10 * TOL_PAGED, got
+
+
+def test_multipage_entry_points_on_cpu():
+    """The wrapper, the tail form and the pass decode's entry point take a
+    multipage row on the CPU: the wrapper is the plain version bit for bit,
+    the tail form its eager merge, and ``decode_pages`` gives ``fr_decode``'s
+    words of the first tokens' slots in slot order; no launch is counted.  A
+    window layer's ring refuses such rows, and so does a slot count that is
+    not whole rows."""
+    ppr, groups = 2, 2
+    run = _multipage_run(ppr, groups, 12, seed=3)
+    P, n_kv, hd = MULTIPAGE[ppr]
+    cfg = run.spec.fr
+    words = tfr.bf16_to_words(run.kv).reshape(2, -1, P)
+
+    def pages(w):
+        blob = tfr.fr_encode(w, run.table, cfg)
+        return {k: v.reshape((B, -1) + v.shape[1:]) for k, v in blob.items()
+                if k not in ("n_spilled", "n_dropped")}
+
+    pk, pv = pages(words[0]), pages(words[1])
+    assert pk["ptrs"].shape[1] == 12 * ppr
+    q = _multipage_query(run, 9).reshape(B, n_kv, groups, hd).float()
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+    before = (_launches("attn"), _launches("attn_multipage"))
+    for pos in (0, 5, 11):
+        got = t_pa.paged_attention_decode(q, pk, pv, run.table, pos, cfg, **geom)
+        want = t_pa.paged_attention_decode_plain(q, pk, pv, run.table, pos, cfg, **geom)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        kt, vt = run.kv[0, :, pos:pos + 1], run.kv[1, :, pos:pos + 1]
+        tail = t_pa.paged_attention_decode_tail(q, pk, pv, run.table, pos, cfg, k_tail=kt,
+                                                v_tail=vt, **geom)
+        assert torch.equal(tail, _eager_tail_merge(q, want, kt, vt, pos, 0))
+    k, v = t_pa.decode_pages(pk, pv, run.table, 5, cfg, **geom)
+    assert k.shape == v.shape == (B, 5 * ppr, P)
+    for b in range(B):
+        assert torch.equal(k[b], tfr.fr_decode({f: t[b, :5 * ppr] for f, t in pk.items()},
+                                               run.table, cfg))
+    assert (_launches("attn"), _launches("attn_multipage")) == before
+    with pytest.raises(ValueError, match="window"):
+        t_pa.paged_attention_decode(q, pk, pv, run.table, 5, cfg, **geom, window=4)
+    with pytest.raises(ValueError, match="window"):
+        t_pa.attn_geometry(cfg, **geom, window=4)
+    odd = {f: t[:, :-1] for f, t in pk.items()}
+    with pytest.raises(ValueError, match="whole rows"):
+        t_pa.decode_pages(odd, odd, run.table, 5, cfg, **geom)
+
+
+def test_multipage_geometry_sees_a_page_of_heads():
+    """A row over ppr slots runs blocks of a page's Kv / ppr heads: the same
+    shared memory, pass size and token slices as a geometry of those heads
+    whose row fills one page, and ppr head groups on the grid's third axis;
+    the kernel's parameters are a page row's, its page count the slots'."""
+    kv = tfr.FRConfig(**KV_FR)
+    wide = t_pa.attn_geometry(kv, n_kv=32, hd=128, groups=1)             # deepseek-7b
+    half = t_pa.attn_geometry(kv, n_kv=16, hd=128, groups=1)
+    assert (wide.pt, wide.ppr, wide.chunks) == (1, 2, 2) and half.ppr == 1
+    assert (wide.pass_n, wide.ts) == (half.pass_n, half.ts) == (8, 1)
+    for n in range(1, t_pa.MAX_PASS_SLOTS + 1):
+        assert (t_pa.smem_bytes(kv, n_kv=32, hd=128, groups=1, n_slots=n)
+                == t_pa.smem_bytes(kv, n_kv=16, hd=128, groups=1, n_slots=n))
+    ip = t_pa.attn_iparams(kv, n_kv=32, hd=128, groups=1, batch=3, n_slots=10)
+    assert ip[0] == 3 * 10 * 2 and ip[-2:] == [1, 8]
+    hd512 = t_pa.attn_geometry(kv, n_kv=8, hd=512, groups=2)          # two channel chunks a row
+    assert (hd512.ppr, hd512.chunks) == (2, 2 * 1 * 2)
+
+
+# ---------------------------------------------------------------------------
 # on the card: kernel vs plain
 # ---------------------------------------------------------------------------
 
 def _card_pages(cfg, n_kv, hd, slots, dev, seed):
-    pt = cfg.page_words // (n_kv * hd)
+    """K and V pages of ``slots`` page slots a row, or of ``slots`` tokens
+    (``slots * ppr`` page slots) where a row spans several, and their table."""
+    pt, ppr = t_pa.attn_layout(cfg, n_kv, hd)
     rng = np.random.default_rng(seed)
     sparse = cfg.num_profiles > 1
     kw, vw = (torch.from_numpy(kv_words(rng, slots * pt, n_kv, hd, sparse).astype(np.int32)).to(dev)
@@ -587,7 +782,7 @@ def _card_pages(cfg, n_kv, hd, slots, dev, seed):
 
     def pages(w):
         blob = tfr.fr_encode(w.reshape(-1, cfg.page_words), table, cfg)
-        return {k: v.reshape((B, slots) + v.shape[1:]).contiguous() for k, v in blob.items()
+        return {k: v.reshape((B, slots * ppr) + v.shape[1:]).contiguous() for k, v in blob.items()
                 if k not in ("n_spilled", "n_dropped")}
 
     return pages(kw), pages(vw), table, pt
@@ -735,6 +930,63 @@ def test_tail_form_matches_unfused_on_card(cuda_device, case):
             assert float(ulps.max()) <= 1, (pos, float(ulps.max()), int((ulps > 1).sum()))
 
 
+#: rows over several page slots on the card: (fr, n_kv, hd, groups, batch,
+#: tokens, positions): deepseek-7b's layer at the benchmark cell's context (2
+#: slots a row, G 1), 4 slots a row at G 2, 2 slots of hd 256 (8 channels a
+#: lane), and 2 slots of hd 512 (two channel chunks)
+MULTIPAGE_CARD = {
+    "deepseek-7b": (KV_FR, 32, 128, 1, 4, 4096, (4031, 4095)),
+    "ppr4-g2": (_single_width(512), 16, 128, 2, B, 300, (299, 171, 8, 0)),
+    "hd256-g2": (KV_FR, 16, 256, 2, B, 200, (199, 64, 7)),
+    "hd512-g2": (KV_FR, 8, 512, 2, B, 150, (149, 33)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MULTIPAGE_CARD))
+def test_multipage_kernel_matches_plain_on_card(cuda_device, case):
+    """Kernel C over rows that span several page slots (each head group's
+    blocks decoding its own slots) against the plain version: the state form
+    within ``assert_state_close`` and the tail form within one bf16 ulp, at
+    positions off and on a pass's end; every launch is counted in
+    ``launches.attn_multipage`` as in ``launches.attn``."""
+    from repro_torch.kernels import gbdi_encode as enc
+
+    fr_kw, n_kv, hd, groups, batch, n_tok, positions = MULTIPAGE_CARD[case]
+    cfg = tfr.FRConfig(**fr_kw)
+    ppr = t_pa.attn_layout(cfg, n_kv, hd)[1]
+    assert ppr > 1
+    gen = torch.Generator(cuda_device).manual_seed(n_tok + ppr)
+    means = torch.randn(2, 1, 1, n_kv, hd, generator=gen, device=cuda_device) * 2
+    kv = (means + 0.1 * torch.randn(2, batch, n_tok, n_kv, hd, generator=gen,
+                                    device=cuda_device)).to(torch.bfloat16)
+    words = tfr.bf16_to_words(kv)
+    table = tfr.fit_fr_bases(words[:, 0, :64].reshape(-1), cfg)
+
+    def pages(w):
+        blob = enc.gbdi_encode(w.reshape(-1, cfg.page_words).contiguous(), table, cfg)
+        return {k: v.reshape((batch, n_tok * ppr) + v.shape[1:]) for k, v in blob.items()
+                if k not in ("n_spilled", "n_dropped")}
+
+    pk, pv = pages(words[0]), pages(words[1])
+    q = torch.randn(batch, n_kv, groups, hd, generator=gen, device=cuda_device) * 4
+    geom = dict(n_kv=n_kv, hd=hd, groups=groups)
+    for pos in positions:
+        kt, vt = kv[0, :, pos:pos + 1], kv[1, :, pos:pos + 1]
+        n0, m0 = _launches("attn"), _launches("attn_multipage")
+        got = t_pa.paged_attention_decode(q, pk, pv, table, pos, cfg, **geom)
+        out = t_pa.paged_attention_decode_tail(q, pk, pv, table, pos, cfg, k_tail=kt, v_tail=vt,
+                                               **geom)
+        torch.cuda.synchronize()
+        assert _launches("attn") - n0 == _launches("attn_multipage") - m0 == 2
+        want = t_pa.paged_attention_decode_plain(q, pk, pv, table, pos, cfg, **geom)
+        assert_state_close([t.cpu() for t in got], [t.cpu() for t in want])
+        plain = t_pa.paged_attention_decode_tail_plain(q, pk, pv, table, pos, cfg, k_tail=kt,
+                                                       v_tail=vt, **geom)
+        ulps = bf16_ulps(out, plain)
+        assert float(ulps.max()) <= 1, (pos, float(ulps.max()), int((ulps > 1).sum()))
+
+
 @pytest.mark.cuda
 def test_smem_formula_matches_kernel_source(cuda_device):
     """The wrapper's shared-memory formula equals the kernel source's at every
@@ -745,7 +997,10 @@ def test_smem_formula_matches_kernel_source(cuda_device):
                      (ADAPTIVE_2048, dict(n_kv=8, hd=128, groups=4)),
                      (KV_FR, dict(n_kv=1, hd=512, groups=8)),
                      (KV_FR, dict(n_kv=1, hd=128, groups=6)),
-                     (KV_FR, dict(n_kv=1, hd=256, groups=8))):
+                     (KV_FR, dict(n_kv=1, hd=256, groups=8)),
+                     (KV_FR, dict(n_kv=32, hd=128, groups=1)),
+                     (_single_width(512), dict(n_kv=16, hd=128, groups=2)),
+                     (KV_FR, dict(n_kv=8, hd=512, groups=2))):
         cfg = tfr.FRConfig(**kw)
         for n in range(1, t_pa.MAX_PASS_SLOTS + 1):
             ip = _build.int_array(t_pa.attn_iparams(cfg, **geom, pass_n=n))
@@ -763,12 +1018,14 @@ def test_pass_decode_matches_decode_kernel(cuda_device, case):
 
     fr_kw, n_kv, hd, groups, n, pt = PHASE5[case]
     cfg = tfr.FRConfig(**fr_kw)
+    ppr = t_pa.attn_layout(cfg, n_kv, hd)[1]
     slots = 5 * n + 3
     pk, pv, table, _ = _card_pages(cfg, n_kv, hd, slots, cuda_device, seed=slots + n_kv)
     for n_valid in (slots, slots - 1, n - 1, 1):
         k, v = t_pa.decode_pages(pk, pv, table, n_valid, cfg, n_kv=n_kv, hd=hd, groups=groups)
+        n_slots = n_valid * ppr               # a wide row's tokens fill ppr slots each
         for got, pages in ((k, pk), (v, pv)):
-            flat = {key: t[:, :n_valid].reshape((B * n_valid,) + t.shape[2:]).contiguous()
+            flat = {key: t[:, :n_slots].reshape((B * n_slots,) + t.shape[2:]).contiguous()
                     for key, t in pages.items()}
-            want = t_dec.gbdi_decode(flat, table, cfg).reshape(B, n_valid, cfg.page_words)
+            want = t_dec.gbdi_decode(flat, table, cfg).reshape(B, n_slots, cfg.page_words)
             assert torch.equal(got, want), f"{int((got != want).sum())} words differ"

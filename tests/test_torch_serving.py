@@ -478,14 +478,20 @@ def test_backend_errors(ref):
         sess.step(q, q[:, :, :2], q[:, :, :2])
     with pytest.raises(ValueError, match="outside"):
         tkv.append(d.spec, cache, q[:, :, :2], q[:, :, :2], d.spec.n_pages * d.spec.page_tokens)
-    w = setup(ref, "wide-row")                 # a row of two pages: paged cannot run it
+    w = setup(ref, "wide-row")                 # a row of two pages, one head a page
     wide = tkv.init_compressed(w.spec, B, w.table, device="cpu")
-    qw = torch.zeros(B, 1, 4, w.spec.head_dim)
-    with pytest.raises(ValueError, match="whole number"):
-        tkv.attention_decode(w.spec, qw, wide, 0, backend="paged")
-    with pytest.raises(ValueError, match="whole number"):
-        tkv.attention_decode(w.spec, qw, wide, 0)            # auto -> paged
-    assert tkv.attention_decode(w.spec, qw, wide, 0, backend="oracle").shape == (B, 1, 4 * 128)
+    qw = torch.from_numpy(w.rng.normal(0, 1, (B, 1, 4, w.spec.head_dim)).astype(np.float32))
+    for pos in range(w.spec.max_len):
+        tkv.append(w.spec, wide, torch.from_numpy(w.ks[:, pos:pos + 1]),
+                   torch.from_numpy(w.vs[:, pos:pos + 1]), pos)
+        orc = tkv.attention_decode(w.spec, qw, wide, pos, backend="oracle").float()
+        assert orc.shape == (B, 1, 4 * 128)
+        for backend in ("paged", "auto"):               # auto -> paged
+            got = tkv.attention_decode(w.spec, qw, wide, pos, backend=backend).float()
+            # paged is within half a bf16 ulp of float32 attention, the oracle
+            # (its probabilities rounded to bf16) within another ulp
+            assert float(((got - orc).abs() / orc.abs().clamp_min(1)).max()) \
+                <= 2 ** -7 + 2 ** -8 + 1e-5, (backend, pos)
 
 
 def test_session_needs_a_card_or_cpu(monkeypatch):
@@ -503,15 +509,18 @@ def test_session_needs_a_card_or_cpu(monkeypatch):
 
 #: (n_kv, groups, head_dim): one chip's share of mixtral-8x22b under 8-way
 #: tensor parallelism, and musicgen-large whole; a window layer at
-#: Trinity-Large-Preview's share (mixtral's geometry)
-CARD_GEOMS = {"mixtral": (1, 6, 128), "musicgen": (32, 1, 64), "trinity-window": (1, 6, 128)}
+#: Trinity-Large-Preview's share (mixtral's geometry); deepseek-7b whole, a
+#: row over two page slots
+CARD_GEOMS = {"mixtral": (1, 6, 128), "musicgen": (32, 1, 64), "trinity-window": (1, 6, 128),
+              "deepseek-7b": (32, 1, 128)}
 #: the window of each window layer (tokens): 49, a ring of 4 slots of 16
 #: tokens that the prefix wraps; the slot the flush step reuses lies wholly
 #: before the plain step's window, so that step, run again after the flush,
 #: reads what it read before
 CARD_WINDOWS = {"trinity-window": 49}
 #: counters a checked step reports, as differences
-STEP_COUNTERS = ("uploads", "launches.attn", "launches.encode", "table_prep.miss")
+STEP_COUNTERS = ("uploads", "launches.attn", "launches.encode", "table_prep.miss",
+                 "launches.attn_multipage")
 
 
 @pytest.mark.cuda
@@ -523,7 +532,8 @@ def test_warm_paged_step_makes_no_blocking_copy_on_card(name):
     synchronising call, and the plain step gives the cold step's outputs bit
     for bit.  musicgen's page holds one token, so each of its steps flushes.
     A window layer's steps run the ring instantiation and its flush reuses a
-    ring slot."""
+    ring slot.  deepseek-7b's row fills two page slots a token: each step
+    flushes, and each launch counts in ``launches.attn_multipage``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -582,10 +592,12 @@ def test_warm_paged_step_makes_no_blocking_copy_on_card(name):
 
     warm, got = checked(plain_pos)
     flushes = 2 * len(caches) if pt == 1 else 0
+    multipage = len(caches) if spec.pages_per_row > 1 else 0
     assert got == {"uploads": 0, "launches.attn": len(caches), "launches.encode": flushes,
-                   "table_prep.miss": 0}
+                   "table_prep.miss": 0, "launches.attn_multipage": multipage}
     for w, c in zip(warm, cold):
         assert torch.equal(w.view(torch.int16), c.view(torch.int16))
     _, got = checked(flush_pos)
     assert got == {"uploads": 0, "launches.attn": len(caches),
-                   "launches.encode": 2 * len(caches), "table_prep.miss": 0}
+                   "launches.encode": 2 * len(caches), "table_prep.miss": 0,
+                   "launches.attn_multipage": multipage}
